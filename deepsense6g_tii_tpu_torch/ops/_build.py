@@ -1,0 +1,106 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Each ``csrc/<name>.cu`` holds a plain C interface and is compiled by hand
+with nvcc for Hopper (``sm_90a``) into ``build/kernels/<name>-<hash>.so`` at
+the root of the checkout (``~/.cache/deepsense6g_tii_tpu_torch/kernels`` for
+an installed package), keyed by a hash of the source and the flags, then
+loaded with ``ctypes``.  Nothing here runs at import: a wrapper calls
+:func:`load` when a CUDA tensor first reaches it.  No PyTorch header is
+compiled, so a build takes seconds.
+
+``KERNEL_LAUNCHES`` counts launches per kernel name.  A wrapper adds one
+where it launches its kernel and nowhere else, so a caller can reset the
+counts, run the model and see which kernels the run went through.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, Iterable
+
+CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
+
+
+def _build_dir() -> Path:
+    """``build/kernels`` at the root of the checkout when the package runs
+    from one; for an installed package, a per-user cache under HOME."""
+    root = Path(__file__).resolve().parents[2]
+    if (root / "pyproject.toml").is_file():
+        return root / "build" / "kernels"
+    return Path.home() / ".cache" / "deepsense6g_tii_tpu_torch" / "kernels"
+
+
+BUILD_DIR = _build_dir()
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+CUDA_NVCC = "/usr/local/cuda/bin/nvcc"
+
+KERNEL_LAUNCHES: Dict[str, int] = {}
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def count_launch(name: str) -> None:
+    KERNEL_LAUNCHES[name] = KERNEL_LAUNCHES.get(name, 0) + 1
+
+
+def reset_launch_counts() -> None:
+    KERNEL_LAUNCHES.clear()
+
+
+def _nvcc() -> str:
+    nvcc = shutil.which("nvcc") or CUDA_NVCC
+    if not os.path.exists(nvcc):
+        raise RuntimeError("nvcc not found (PATH or /usr/local/cuda/bin): "
+                           "the port's CUDA kernels are built at first use")
+    return nvcc
+
+
+def library_path(name: str) -> Path:
+    src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+
+
+def build(names: Iterable[str]) -> Dict[str, str]:
+    """Compile every kernel in ``names`` that is not built yet, one nvcc
+    process per source, all started together.  Returns nvcc's output per
+    name built (ptxas's registers, shared memory and spills for each kernel
+    instance).  Raises if any build fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+               str(CSRC_DIR / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out)
+    logs, failed = {}, []
+    for name, (proc, tmp, out) in procs.items():
+        logs[name] = proc.communicate()[0]
+        if proc.returncode:
+            failed.append(name)
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n"
+                           + "\n".join(logs[n] for n in failed))
+    return logs
+
+
+def load(name: str) -> ctypes.CDLL:
+    """Build (if needed) and load ``csrc/<name>.cu``'s shared library."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        build([name])
+        lib = _LIBS[name] = ctypes.CDLL(str(library_path(name)))
+    return lib
