@@ -3,10 +3,13 @@
 The port's own copy of ``deepsense6g_tii_tpu/config.py:18-187``: the same
 frozen dataclass with the same field names and defaults, so a configuration
 written for the JAX package (``GlobalConfig(FFM=0, TFM=0, ...)``) means the
-same model here.  Knobs that only steer TPU lowering (``use_pallas_scan``,
-``remat``, ``padded_token_stream``, ...) are kept so that configurations
-carry over; the port ignores them or raises where it does not implement
-them (see models/encoder.py).
+same model here.  Two kernel switches keep their JAX names and pick the
+hand-written kernel or the plain version for CUDA tensors:
+``use_pallas_scan`` (selective scan) and ``use_flash_attention``.  Knobs
+that only steer TPU lowering (``remat``, ``padded_token_stream``,
+``merge_lidar_radar``, ...) are kept so that configurations carry over; the
+port ignores them or raises where it does not implement them (see
+models/encoder.py and models/fusion.py).
 """
 
 from __future__ import annotations
@@ -70,6 +73,8 @@ class GlobalConfig:
     # ---- execution knobs ----
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"  # activation/matmul dtype
+    # hand-written selective-scan kernel (ops/selective_scan.py) for the
+    # Mamba layers vs the plain doubling scan
     use_pallas_scan: bool = True
     # hand-written flash-attention kernel (ops/flash_attention.py) for the
     # GPT fusion blocks vs the plain materialised-softmax path

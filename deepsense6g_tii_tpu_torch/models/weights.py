@@ -9,8 +9,14 @@ The port's module names follow the flax scope names
   conv kernel (kh, kw, in, out)   -> weight (out, in, kh, kw)
   Dense kernel (in, out)          -> weight (out, in)
   BatchNorm / LayerNorm scale     -> weight;   bias -> bias
+                                     (a MambaBlock's ln1 is (n_tokens, C))
   batch_stats mean / var          -> running_mean / running_var
   pos_emb                         -> pos_emb (unchanged)
+  Mamba conv1d_weight (K, 1, d)   -> conv1d_weight (d, 1, K)
+  Mamba conv1d_bias, dt_proj_weight (dt_rank, d), dt_proj_bias, A_log
+  (d, n), D                       -> the same names, unchanged
+
+Any other leaf raises ``KeyError``.
 """
 
 from __future__ import annotations
@@ -21,6 +27,8 @@ import numpy as np
 import torch
 
 _STATS = {"mean": "running_mean", "var": "running_var"}
+_AS_IS = ("bias", "pos_emb", "conv1d_bias", "dt_proj_weight", "dt_proj_bias",
+          "A_log", "D")
 
 
 def _leaf(key: str, arr: np.ndarray, stats: bool):
@@ -31,7 +39,9 @@ def _leaf(key: str, arr: np.ndarray, stats: bool):
                           else arr.T)
     if key == "scale":
         return "weight", arr
-    if key in ("bias", "pos_emb"):
+    if key == "conv1d_weight":
+        return key, arr.transpose(2, 1, 0)
+    if key in _AS_IS:
         return key, arr
     raise KeyError(f"no port counterpart for JAX leaf {key!r}")
 

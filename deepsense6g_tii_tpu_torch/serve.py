@@ -9,10 +9,15 @@ reports p50/p90/mean.
     pred = Predictor(model, cfg)
     idx, conf = pred.predict(image, lidar, radar, gps)  # (B, 3), (B,)
 
-Run as a script, it serves synthetic requests through the full-width GPT
-TransFuser with random seeded weights on the GPU and prints the latency:
+Run as a script, it serves synthetic requests through a full-width model
+with random seeded weights on the GPU and prints the latency.  ``--FFM`` and
+``--TFM`` default to 1, as the JAX package's serve CLI does: the MambaFuser
+(``mambafuser_config()``, through the selective-scan kernel).  ``--FFM 0
+--TFM 0`` serves the GPT TransFuser (``gpt_transfuser_config()``, through
+the flash-attention kernel):
 
     python -m deepsense6g_tii_tpu_torch.serve --batch 8
+    python -m deepsense6g_tii_tpu_torch.serve --FFM 0 --TFM 0 --batch 8
 """
 
 from __future__ import annotations
@@ -104,11 +109,19 @@ class Predictor:
 
 
 def gpt_transfuser_config(**overrides) -> GlobalConfig:
-    """The served model: the GPT TransFuser at full width (5 frames,
-    256 px, 8x8 anchors, 8 layers, 4 heads, 962 tokens), bf16 compute and
-    the flash-attention kernel."""
-    return GlobalConfig(FFM=0, TFM=0, use_flash_attention=True,
-                        compute_dtype="bfloat16", **overrides)
+    """The GPT TransFuser at full width (5 frames, 256 px, 8x8 anchors, 8
+    layers, 4 heads, 962 tokens), bf16 compute and the flash-attention
+    kernel."""
+    return GlobalConfig(**{**dict(FFM=0, TFM=0, use_flash_attention=True,
+                                  compute_dtype="bfloat16"), **overrides})
+
+
+def mambafuser_config(**overrides) -> GlobalConfig:
+    """The MambaFuser at full width (5 frames, 256 px, 8x8 anchors, 8
+    MambaBlocks per stage with the channel swap, d_state 16, 962 tokens,
+    TimeMamba head), bf16 compute and the selective-scan kernel."""
+    return GlobalConfig(**{**dict(FFM=1, TFM=1, use_pallas_scan=True,
+                                  compute_dtype="bfloat16"), **overrides})
 
 
 def main(argv=None) -> int:
@@ -120,8 +133,11 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--batch", type=int, default=1)
     p.add_argument("--iters", type=int, default=30)
+    p.add_argument("--FFM", type=int, default=1)
+    p.add_argument("--TFM", type=int, default=1)
     a = p.parse_args(argv)
-    cfg = gpt_transfuser_config()
+    config = mambafuser_config if a.FFM else gpt_transfuser_config
+    cfg = config(TFM=a.TFM)
     model = BeamFuser(cfg, generator=torch.Generator().manual_seed(0))
     pred = Predictor(model, cfg)
     pred.warmup()

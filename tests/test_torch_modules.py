@@ -216,5 +216,10 @@ def test_token_fusion_matches(token_fusion, stream):
 
 
 def test_token_fusion_mamba_is_not_ported_yet():
+    """The Mamba fusion is ported (tests/test_torch_mambafuser.py); its
+    padded-token-stream TPU lowering knob is not, and says so."""
+    assert isinstance(fusion.TokenFusion(32, 1, 26, fusion_type="mamba")
+                      .block0, fusion.MambaBlock)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fusion.TokenFusion(32, 1, 26, fusion_type="mamba")
+        fusion.TokenFusion(32, 1, 26, fusion_type="mamba",
+                           padded_stream=True)

@@ -1,6 +1,8 @@
-"""The port's serving slice — the GPT TransFuser (FFM=0, TFM=0) behind
-``Predictor`` — against the JAX package on the same weights, on the CPU at
-the small test geometry; plus the port's import rules and device rules.
+"""The port's first serving slice — the GPT TransFuser (FFM=0, TFM=0)
+behind ``Predictor`` — against the JAX package on the same weights, on the
+CPU at the small test geometry; plus the options the port does not take,
+and the port's import rules and device rules.  The MambaFuser slice is
+tests/test_torch_mambafuser.py.
 """
 
 import ast
@@ -131,13 +133,19 @@ def test_seeded_init_is_reproducible():
         torch.testing.assert_close(a[key], b[key], rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("knob", [dict(TFM=1), dict(FFM=1),
-                                  dict(modality_missing="image"),
+@pytest.mark.parametrize("knob", [dict(merge_lr_stage1=True),
+                                  dict(FFM=1, padded_token_stream=True),
+                                  dict(rebuild_feats=True),
                                   dict(merge_lidar_radar=True),
                                   dict(pred_len=5)])
-def test_unported_options_raise(knob):
-    with pytest.raises(NotImplementedError):
-        BeamFuser(GlobalConfig(**{**SMALL, **knob}), device="cpu")
+def test_unported_options_raise(knob, inputs):
+    knob = dict(knob)
+    rebuild = knob.pop("rebuild_feats", False)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        model = BeamFuser(GlobalConfig(**{**SMALL, **knob}), device="cpu")
+        if rebuild:
+            x = tuple(map(torch.from_numpy, inputs))
+            model.encoder(*x, rebuild_feats=torch.zeros(6, 16, 16, 64))
 
 
 # -- import and device rules ---------------------------------------------------
@@ -175,7 +183,9 @@ def test_port_sources_import_no_jax():
 def test_package_imports_with_jax_blocked():
     modules = [m.name for m in pkgutil.walk_packages(
         deepsense6g_tii_tpu_torch.__path__, "deepsense6g_tii_tpu_torch.")]
-    assert "deepsense6g_tii_tpu_torch.ops.flash_attention" in modules
+    assert {"deepsense6g_tii_tpu_torch.ops.flash_attention",
+            "deepsense6g_tii_tpu_torch.ops.selective_scan",
+            "deepsense6g_tii_tpu_torch.ops.mamba"} <= set(modules)
     code = ("import sys, importlib\n"
             "for m in ('jax', 'jaxlib', 'flax', 'deepsense6g_tii_tpu'):\n"
             "    sys.modules[m] = None\n"
