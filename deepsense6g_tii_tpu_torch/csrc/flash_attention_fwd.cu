@@ -13,8 +13,15 @@
 // while, in bf16, P is rounded to bf16 before the P.V product (as
 // `p.astype(v.dtype)` does there); O = acc / l in the input dtype and
 // lse = m + log(l) in f32.  Key columns >= T are masked and their
-// probabilities zeroed here, so the host pads nothing.  Dropout is not
-// taken: the wrapper raises for dropout_p > 0.
+// probabilities zeroed here, so the host pads nothing.
+//
+// Attention-probability dropout (training): the keep decision of every
+// (bh, row, col) comes from the hash stream of flash_dropout.cuh, so the
+// backward kernels regenerate the same mask from their own tiles.  As on
+// the TPU, l sums the undropped probabilities and the f32 scale {0, 1/(1-p)}
+// multiplies p before it is rounded for P.V; lse stays m + log(l).  With
+// p == 0 the stream is skipped and the kernel computes what it computed
+// without it.
 //
 // Bound on an H100 SXM: 4*BH*T^2*D operations against 4*BH*T*D*bytes moved,
 // about T/bytes = 481 operations per byte in bf16 at T = 962, above the
@@ -35,6 +42,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "flash_dropout.cuh"
 
 namespace {
 
@@ -86,7 +95,8 @@ template <typename T, int D>
 __global__ void __launch_bounds__(NT)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
-                 float* __restrict__ lse, int t, float sm_scale) {
+                 float* __restrict__ lse, int t, float sm_scale,
+                 DropoutStream drop) {
   constexpr int CPT = D / 8;
   extern __shared__ float4 smem4[];
   float* qt = reinterpret_cast<float*>(smem4);  // [D][BM]  q tile, transposed
@@ -175,13 +185,25 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int j = 0; j < 8; ++j) {
         const float p = (k0 + tx + 8 * j < t) ? expf(s[i][j] - m_new) : 0.f;
         sum += p;
-        s[i][j] = round_p(p, q);
+        s[i][j] = p;
       }
       l[i] = alpha * l[i] + group8_sum(sum);
       m[i] = m_new;
 #pragma unroll
       for (int c = 0; c < CPT; ++c) acc[i][c] *= alpha;
     }
+    if (drop.p > 0.f) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          s[i][j] = drop.keep(blockIdx.y, q0 + ty * 4 + i, k0 + tx + 8 * j)
+                        ? s[i][j] * drop.scale : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) s[i][j] = round_p(s[i][j], q);
 #pragma unroll
     for (int j = 0; j < 8; ++j)
       *reinterpret_cast<float4*>(pt + (tx + 8 * j) * PT_LD + ty * 4) =
@@ -218,7 +240,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    void* lse, int bh, int t, float sm_scale,
-                   cudaStream_t stream) {
+                   DropoutStream drop, cudaStream_t stream) {
   const int smem = (D * BM + 2 * D * BN + BN * PT_LD) * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -228,19 +250,19 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   flash_fwd_kernel<T, D><<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
-      t, sm_scale);
+      t, sm_scale, drop);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o,
                        void* lse, int bh, int t, int d, float sm_scale,
-                       cudaStream_t stream) {
+                       DropoutStream drop, cudaStream_t stream) {
   switch (d) {
-    case 16: return launch<T, 16>(q, k, v, o, lse, bh, t, sm_scale, stream);
-    case 32: return launch<T, 32>(q, k, v, o, lse, bh, t, sm_scale, stream);
-    case 64: return launch<T, 64>(q, k, v, o, lse, bh, t, sm_scale, stream);
-    case 128: return launch<T, 128>(q, k, v, o, lse, bh, t, sm_scale, stream);
+    case 16: return launch<T, 16>(q, k, v, o, lse, bh, t, sm_scale, drop, stream);
+    case 32: return launch<T, 32>(q, k, v, o, lse, bh, t, sm_scale, drop, stream);
+    case 64: return launch<T, 64>(q, k, v, o, lse, bh, t, sm_scale, drop, stream);
+    case 128: return launch<T, 128>(q, k, v, o, lse, bh, t, sm_scale, drop, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -248,16 +270,22 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o,
 }  // namespace
 
 // q, k, v, o: (bh, t, d) contiguous, f32 (is_bf16 = 0) or bf16 (is_bf16 = 1),
-// 16-byte aligned; lse: (bh, t) f32.  Launches on `stream` without
-// synchronising and returns cudaGetLastError() of the launch.
+// 16-byte aligned; lse: (bh, t) f32.  dropout_p > 0 drops attention
+// probabilities by the hash stream of (seed, t_pad) and scales the kept ones
+// by drop_scale.  Launches on `stream` without synchronising and returns
+// cudaGetLastError() of the launch.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* o, void* lse, int bh,
                                    int t, int d, int is_bf16, float sm_scale,
-                                   void* stream) {
-  if (bh <= 0 || bh > 65535 || t <= 0) return (int)cudaErrorInvalidValue;
+                                   float dropout_p, float drop_scale,
+                                   uint32_t seed, int t_pad, void* stream) {
+  if (bh <= 0 || bh > 65535 || t <= 0 || t_pad < t)
+    return (int)cudaErrorInvalidValue;
+  const DropoutStream drop{dropout_p, drop_scale, seed, (uint32_t)t_pad};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return (int)(is_bf16
                    ? dispatch_d<__nv_bfloat16>(q, k, v, o, lse, bh, t, d,
-                                               sm_scale, s)
-                   : dispatch_d<float>(q, k, v, o, lse, bh, t, d, sm_scale, s));
+                                               sm_scale, drop, s)
+                   : dispatch_d<float>(q, k, v, o, lse, bh, t, d, sm_scale,
+                                       drop, s));
 }

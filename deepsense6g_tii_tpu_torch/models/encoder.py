@@ -30,6 +30,7 @@ from torch import nn
 
 from ..config import GlobalConfig
 from ..data.features import normalize_imagenet
+from ..ops.dropout import DropoutRNG
 from ..ops.pooling import adaptive_avg_pool, global_avg_pool
 from ..ops.resize import interpolate_bilinear
 from .fusion import TimeMamba, TokenFusion
@@ -95,7 +96,9 @@ class FusionEncoder(nn.Module):
                 d_conv=cfg.d_conv, expand=cfg.expand,
                 use_scan_kernel=cfg.use_pallas_scan,
                 reverse_scan_kernel=cfg.reverse_scan_kernel,
-                padded_stream=cfg.padded_token_stream))
+                padded_stream=cfg.padded_token_stream,
+                embd_pdrop=cfg.embd_pdrop, attn_pdrop=cfg.attn_pdrop,
+                resid_pdrop=cfg.resid_pdrop))
         if cfg.TFM:
             self.time_mamba = TimeMamba(
                 STAGE_FEATURES[3], cfg.seq_len, cfg.gps_len, cfg.d_state,
@@ -122,11 +125,13 @@ class FusionEncoder(nn.Module):
         return out
 
     def forward(self, image, lidar, radar, gps, rebuild_feats=None,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                rng: Optional[DropoutRNG] = None):
         """image: (B, T, H, W, 3) in [0, 255]; lidar: (B, T, H, W, 1);
         radar: (B, T, H, W, 1|2); gps: (B, gps_len, 2).  Returns the (B, 512)
         fused features in f32.  ``generator`` feeds
-        ``modality_missing_type="randlike"``."""
+        ``modality_missing_type="randlike"``; ``rng`` the fusion stages'
+        dropout in train mode (BatchNorm follows ``self.training`` too)."""
         if rebuild_feats is not None:
             raise NotImplementedError(
                 "rebuild_feats (the modality-rebuild hook) is not in the "
@@ -146,8 +151,8 @@ class FusionEncoder(nn.Module):
             anchors = [_unflatten_bt(adaptive_avg_pool(
                 f, cfg.vert_anchors, cfg.horz_anchors), B) for f in feats]
             gps_emb = getattr(self, f"vel_emb{i + 1}")(gps_feats).to(dtype)
-            *outs, gps_feats = getattr(self, f"fusion{i + 1}")(*anchors,
-                                                               gps_emb)
+            *outs, gps_feats = getattr(self, f"fusion{i + 1}")(
+                *anchors, gps_emb, rng=rng)
             gps_feats = gps_feats.float()
             outs = [interpolate_bilinear(_flatten_bt(o), STAGE_UPSAMPLE[i])
                     for o in outs]

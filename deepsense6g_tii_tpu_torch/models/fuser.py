@@ -5,6 +5,10 @@
 switches: the fusion encoder followed by the join MLP 512 -> 256 -> 128 ->
 num_beams in f32.  The multi-step GRU decoder (``pred_len > 1``) is not
 ported yet and raises.
+
+The model is built in eval mode; ``.train()`` switches BatchNorm to batch
+statistics and turns dropout on, which then draws from the two generators
+that ``forward`` takes (train/steps.py passes them).
 """
 
 from __future__ import annotations
@@ -15,6 +19,7 @@ import torch
 from torch import nn
 
 from ..config import GlobalConfig
+from ..ops.dropout import DropoutRNG
 from ..ops.mamba import Mamba
 from ..utils.device import resolve_device
 from .encoder import FusionEncoder
@@ -68,10 +73,26 @@ class BeamFuser(nn.Module):
         self.to(dev).eval()
 
     def forward(self, image, lidar, radar, gps,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                dropout_generator: Optional[torch.Generator] = None,
+                seed_generator: Optional[torch.Generator] = None):
         """NHWC sensor tensors -> (B, num_beams) f32 logits.  ``generator``
-        feeds ``modality_missing_type="randlike"`` (models/encoder.py)."""
-        z = self.encoder(image, lidar, radar, gps, generator=generator).float()
+        feeds ``modality_missing_type="randlike"`` (models/encoder.py).
+
+        In train mode with any dropout rate > 0, ``dropout_generator`` (on
+        the model's device: elementwise masks) and ``seed_generator`` (on
+        the CPU: the attention kernels' seeds) are required."""
+        cfg, rng = self.config, None
+        if self.training and max(cfg.embd_pdrop, cfg.attn_pdrop,
+                                 cfg.resid_pdrop) > 0.0:
+            if dropout_generator is None or seed_generator is None:
+                raise ValueError(
+                    "BeamFuser in train mode draws dropout from "
+                    "dropout_generator (on the model's device) and "
+                    "seed_generator (on the CPU): pass both")
+            rng = DropoutRNG(dropout_generator, seed_generator)
+        z = self.encoder(image, lidar, radar, gps, generator=generator,
+                         rng=rng).float()
         z = torch.relu(self.join_fc1(z))
         z = torch.relu(self.join_fc2(z))
         return self.join_fc3(z)

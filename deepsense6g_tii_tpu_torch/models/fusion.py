@@ -1,4 +1,4 @@
-"""Token fusion over the fused token sequence, inference mode
+"""Token fusion over the fused token sequence
 (``deepsense6g_tii_tpu/models/fusion.py:55-416``): GPT blocks, the
 bi-directional MambaBlocks and the TimeMamba temporal head.
 
@@ -9,8 +9,16 @@ tokens: 962 tokens for the 5-frame task.
 
 LayerNorms take eps 1e-6 (flax's default, not torch's 1e-5) and run in f32,
 so their outputs are f32 as flax's are for f32 parameters; the Linears run
-in the compute dtype with weights cast at call time.  Dropout is absent:
-these modules serve, and the training path adds it with its kernels.
+in the compute dtype with weights cast at call time.
+
+Dropout, in train mode (``module.train()``) only, as in the JAX package:
+embedding dropout after the positional embedding (``embd_pdrop``),
+attention-probability dropout (``attn_pdrop``), and dropout after the
+attention projection and after the MLP (``resid_pdrop``).  Each forward
+takes the step's :class:`~..ops.dropout.DropoutRNG` as ``rng``.  The
+attention draws one int32 seed per call for the hash stream of the flash
+kernels; the plain attention path applies the same hash mask from the same
+seed, so the two paths differ only in rounding.
 
 MambaBlock parity: the reference combines the forward-order branch with the
 *flipped-order* backward branch without un-flipping it
@@ -24,7 +32,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.flash_attention import flash_mha
+from ..ops.dropout import dropout
+from ..ops.flash_attention import dropout_scale_reference, flash_mha
 from ..ops.mamba import Mamba
 
 LN_EPS = 1e-6
@@ -43,15 +52,17 @@ class SelfAttention(nn.Module):
     materialised and softmaxed in f32 (``fusion.py:100-103``)."""
 
     def __init__(self, n_embd: int, n_head: int, use_flash: bool = False,
-                 dtype=torch.float32):
+                 dtype=torch.float32, attn_pdrop: float = 0.0,
+                 resid_pdrop: float = 0.0):
         super().__init__()
         self.query = nn.Linear(n_embd, n_embd)
         self.key = nn.Linear(n_embd, n_embd)
         self.value = nn.Linear(n_embd, n_embd)
         self.proj = nn.Linear(n_embd, n_embd)
         self.n_head, self.use_flash, self.dtype = n_head, use_flash, dtype
+        self.attn_pdrop, self.resid_pdrop = attn_pdrop, resid_pdrop
 
-    def forward(self, x):
+    def forward(self, x, rng=None):
         B, T, C = x.shape
         hs = C // self.n_head
         dt = self.dtype
@@ -60,33 +71,46 @@ class SelfAttention(nn.Module):
         qkv = F.linear(x.to(dt), w.to(dt), b.to(dt))
         q, k, v = (y.reshape(B, T, self.n_head, hs).transpose(1, 2).contiguous()
                    for y in qkv.split(C, dim=-1))
+        drop = self.attn_pdrop if self.training else 0.0
+        seed = rng.seed() if drop > 0.0 else None
         if self.use_flash:
-            y = flash_mha(q, k, v, sm_scale=hs ** -0.5)
+            y = flash_mha(q, k, v, sm_scale=hs ** -0.5, dropout_p=drop,
+                          seed=seed)
         else:
             att = torch.matmul(q, k.transpose(-1, -2)) * hs ** -0.5
-            att = torch.softmax(att.float(), dim=-1).to(x.dtype)
+            att = torch.softmax(att.float(), dim=-1)
+            if drop > 0.0:
+                att = att * dropout_scale_reference(
+                    seed, B * self.n_head, T, drop,
+                    device=x.device).view(B, self.n_head, T, T)
+            att = att.to(x.dtype)
             y = torch.matmul(att, v.to(att.dtype))
         y = y.transpose(1, 2).reshape(B, T, C)
-        return dense(self.proj, y, dt)
+        return dropout(dense(self.proj, y, dt), self.resid_pdrop,
+                       rng and rng.generator, self.training)
 
 
 class GPTBlock(nn.Module):
     """Pre-LN attention + ReLU MLP block."""
 
     def __init__(self, n_embd: int, n_head: int, block_exp: int,
-                 use_flash: bool = False, dtype=torch.float32):
+                 use_flash: bool = False, dtype=torch.float32,
+                 attn_pdrop: float = 0.0, resid_pdrop: float = 0.0):
         super().__init__()
         self.ln1 = nn.LayerNorm(n_embd, eps=LN_EPS)
-        self.attn = SelfAttention(n_embd, n_head, use_flash, dtype)
+        self.attn = SelfAttention(n_embd, n_head, use_flash, dtype,
+                                  attn_pdrop, resid_pdrop)
         self.ln2 = nn.LayerNorm(n_embd, eps=LN_EPS)
         self.mlp_fc = nn.Linear(n_embd, block_exp * n_embd)
         self.mlp_proj = nn.Linear(block_exp * n_embd, n_embd)
-        self.dtype = dtype
+        self.dtype, self.resid_pdrop = dtype, resid_pdrop
 
-    def forward(self, x):
-        x = x + self.attn(self.ln1(x.float()))
+    def forward(self, x, rng=None):
+        x = x + self.attn(self.ln1(x.float()), rng)
         h = torch.relu(dense(self.mlp_fc, self.ln2(x.float()), self.dtype))
-        return x + dense(self.mlp_proj, h, self.dtype)
+        h = dropout(dense(self.mlp_proj, h, self.dtype), self.resid_pdrop,
+                    rng and rng.generator, self.training)
+        return x + h
 
 
 class LayerNorm2D(nn.Module):
@@ -163,11 +187,13 @@ class TokenFusion(nn.Module):
                  d_state: int = 16, d_conv: int = 4, expand: int = 2,
                  use_scan_kernel: bool = True,
                  reverse_scan_kernel: bool = False,
-                 padded_stream: bool = False):
+                 padded_stream: bool = False, embd_pdrop: float = 0.0,
+                 attn_pdrop: float = 0.0, resid_pdrop: float = 0.0):
         super().__init__()
         if fusion_type == "gpt":
             make_block = lambda: GPTBlock(n_embd, n_head, block_exp,  # noqa: E731
-                                          use_flash, dtype)
+                                          use_flash, dtype, attn_pdrop,
+                                          resid_pdrop)
         elif fusion_type == "mamba":
             if padded_stream:
                 raise NotImplementedError(
@@ -182,10 +208,11 @@ class TokenFusion(nn.Module):
         for i in range(n_layer):
             self.add_module(f"block{i}", make_block())
         self.ln_f = nn.LayerNorm(n_embd, eps=LN_EPS)
-        self.n_layer = n_layer
+        self.n_layer, self.embd_pdrop = n_layer, embd_pdrop
         self.channel_swap = channel_swap and fusion_type == "mamba"
+        self.fusion_type = fusion_type
 
-    def forward(self, image, lidar, radar, gps):
+    def forward(self, image, lidar, radar, gps, rng=None):
         """image: (B, n_views*T, vh, hz, C); lidar/radar: (B, T, vh, hz, C);
         gps: (B, gps_tokens, C).  Returns the four streams in the same
         shapes, in f32 (the final LayerNorm's output)."""
@@ -204,9 +231,11 @@ class TokenFusion(nn.Module):
                                 (radar, image, lidar))]
         tokens = torch.cat([image, lidar, radar], dim=1).reshape(B, -1, C)
         tokens = torch.cat([tokens, gps.to(tokens.dtype)], dim=1)
-        x = tokens + self.pos_emb.to(tokens.dtype)
+        x = dropout(tokens + self.pos_emb.to(tokens.dtype), self.embd_pdrop,
+                    rng and rng.generator, self.training)
         for i in range(self.n_layer):
-            x = getattr(self, f"block{i}")(x)
+            block = getattr(self, f"block{i}")
+            x = block(x, rng) if self.fusion_type == "gpt" else block(x)
         x = self.ln_f(x.float())
         n_map = (Ti + 2 * T) * vh * hz
         maps = x[:, :n_map].reshape(B, Ti + 2 * T, vh, hz, C)

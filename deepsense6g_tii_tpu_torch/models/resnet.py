@@ -1,5 +1,5 @@
-"""ResNet backbones with stage-separable structure, inference mode
-(``deepsense6g_tii_tpu/models/resnet.py:40-172``).
+"""ResNet backbones with stage-separable structure
+(``deepsense6g_tii_tpu/models/resnet.py:23-172``).
 
 The fusion encoder interleaves ResNet stages with cross-modal fusion, so a
 backbone exposes ``stem`` and ``stage1..4`` as separately callable
@@ -7,8 +7,8 @@ submodules.  Modules take and return NHWC tensors, as the JAX package's do;
 each convolution runs on an NCHW view of channels-last memory, so the
 permutes are free and cuDNN picks its NHWC kernels.  Convolutions run in
 the input's dtype (the configured compute dtype) with f32 weights cast at
-call time; BatchNorm uses its running statistics and computes in f32 before
-casting back, as flax's ``BatchNorm(use_running_average=True)`` does.
+call time; BatchNorm computes in f32 before casting back, from its running
+statistics in eval mode and from the batch's in train mode (``BatchNorm``).
 """
 
 from __future__ import annotations
@@ -23,6 +23,7 @@ from torch import nn
 from ..ops.pooling import max_pool_3x3s2
 
 BN_EPS = 1e-5
+BN_MOMENTUM = 0.9   # flax's convention: new = 0.9 * running + 0.1 * batch
 RESNET18_BLOCKS: Tuple[int, ...] = (2, 2, 2, 2)
 RESNET34_BLOCKS: Tuple[int, ...] = (3, 4, 6, 3)
 STAGE_FEATURES: Tuple[int, ...] = (64, 128, 256, 512)
@@ -45,8 +46,20 @@ class Conv2d(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Per-channel affine from running statistics over the last (channel)
-    axis: (x - mean) * scale / sqrt(var + eps) + bias."""
+    """Per-channel (x - mean) * scale / sqrt(var + eps) + bias over the last
+    (channel) axis, in f32, output in the input dtype.
+
+    Eval mode uses the running statistics.  Train mode follows flax's
+    ``BatchNorm(use_running_average=False, momentum=0.9,
+    use_fast_variance=True)``: it normalises with the batch mean and the
+    biased variance mean(x²) − mean(x)² (floored at 0) over (N, H, W),
+    computed in f32, and updates ``running_mean`` and ``running_var`` in
+    place with momentum 0.9 and that same biased variance.  The reference
+    (torch ``BatchNorm2d``) folds the unbiased variance N/(N-1)·var into
+    ``running_var`` instead: a relative drift of about 1/N per update
+    (N = B·T·H·W, at least ~160k at full width), a deviation the JAX
+    package accepts (its ``resnet.py:24-27``) and the port keeps, so that
+    the port and the JAX package agree."""
 
     def __init__(self, channels: int):
         super().__init__()
@@ -56,9 +69,20 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(channels))
 
     def forward(self, x):
-        mul = torch.rsqrt(self.running_var + BN_EPS) * self.weight
-        y = (x.float() - self.running_mean) * mul + self.bias
-        return y.to(x.dtype)
+        xf = x.float()
+        if not self.training:
+            mean, var = self.running_mean, self.running_var
+        else:
+            axes = tuple(range(x.dim() - 1))
+            mean = xf.mean(dim=axes)
+            var = ((xf * xf).mean(dim=axes) - mean * mean).clamp(min=0.0)
+            with torch.no_grad():
+                self.running_mean.copy_(BN_MOMENTUM * self.running_mean
+                                        + (1.0 - BN_MOMENTUM) * mean)
+                self.running_var.copy_(BN_MOMENTUM * self.running_var
+                                       + (1.0 - BN_MOMENTUM) * var)
+        mul = torch.rsqrt(var + BN_EPS) * self.weight
+        return ((xf - mean) * mul + self.bias).to(x.dtype)
 
 
 class BasicBlock(nn.Module):

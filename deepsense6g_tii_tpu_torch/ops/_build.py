@@ -4,7 +4,10 @@ Each ``csrc/<name>.cu`` holds a plain C interface and is compiled by hand
 with nvcc for Hopper (``sm_90a``) into ``build/kernels/<name>-<hash>.so`` at
 the root of the checkout (``~/.cache/deepsense6g_tii_tpu_torch/kernels`` for
 an installed package), keyed by a hash of the source and the flags, then
-loaded with ``ctypes``.  Nothing here runs at import: a wrapper calls
+loaded with ``ctypes``.  The hash covers every ``csrc/*.cuh`` header that
+the source includes (``#include "name.cuh"``, followed through headers), so
+an edited header builds anew; nvcc gets ``-I csrc``.  Nothing here runs at
+import: a wrapper calls
 :func:`load` when a CUDA tensor first reaches it.  No PyTorch header is
 compiled, so a build takes seconds.
 
@@ -18,6 +21,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -61,10 +65,29 @@ def _nvcc() -> str:
     return nvcc
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def _sources(name: str) -> list:
+    """``csrc/<name>.cu`` and, in order of first inclusion, every header
+    of ``csrc/`` that it includes directly or through other headers."""
+    paths, todo = [], [CSRC_DIR / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in paths:
+            continue
+        paths.append(path)
+        todo += [CSRC_DIR / inc.decode()
+                 for inc in _INCLUDE.findall(path.read_bytes())
+                 if (CSRC_DIR / inc.decode()).is_file()]
+    return paths
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in _sources(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: Iterable[str]) -> Dict[str, str]:
@@ -79,7 +102,7 @@ def build(names: Iterable[str]) -> Dict[str, str]:
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", str(tmp),
                str(CSRC_DIR / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),

@@ -22,6 +22,10 @@ tensors' device alone: a CPU tensor goes to :func:`selective_scan_reference`,
 a CUDA tensor to the kernel, or the wrapper raises.  Nothing falls back.
 Importing this module neither builds nor loads the kernel; the first CUDA
 call does (ops/_build.py).
+
+The kernel has no backward yet (ROADMAP.md slice 4): on a CUDA tensor the
+wrapper raises when autograd would need its gradient, instead of handing
+back an output cut from the graph.  The plain version stays differentiable.
 """
 
 from __future__ import annotations
@@ -115,11 +119,21 @@ def _check_kernel_inputs(u, dt, A, B, C):
                          f"{C.stride()}")
 
 
+def needs_grad(*tensors) -> bool:
+    """True when autograd records and any of ``tensors`` requires grad."""
+    return torch.is_grad_enabled() and any(x.requires_grad for x in tensors)
+
+
 def selective_scan_fwd(u, dt, A, B, C, *, reverse: bool = False):
     """y (b, L, d) f32 and the final state h_out (b, n, d) f32 of the
     selective scan; see the module docstring for the contract."""
     if u.device.type == "cpu":
         return selective_scan_reference(u, dt, A, B, C, reverse)
+    if needs_grad(u, dt, A, B, C):
+        raise NotImplementedError(
+            "the selective-scan kernel has no backward yet (ROADMAP.md "
+            "slice 4, MambaFuser training): run it under torch.no_grad() "
+            "or train with use_pallas_scan=False")
     if u.device.type != "cuda":
         raise ValueError(f"selective scan runs on cuda or cpu tensors, got "
                          f"{u.device}")

@@ -73,8 +73,9 @@ class TestAgainstPallas:
 
 class TestWrapper:
     def test_dropout_raises(self):
+        # dropout needs the stream's seed, as the JAX package's needs an rng
         q, k, v = (torch.from_numpy(x) for x in _qkv(5, t=20))
-        with pytest.raises(NotImplementedError, match="dropout"):
+        with pytest.raises(ValueError, match="dropout"):
             fa.flash_mha(q, k, v, dropout_p=0.1)
 
     def test_cpu_tensors_never_reach_the_kernel(self, monkeypatch):
@@ -82,7 +83,7 @@ class TestWrapper:
             raise AssertionError(f"kernel {name} loaded for a CPU tensor")
 
         monkeypatch.setattr(_build, "load", no_build)
-        monkeypatch.setattr(fa, "_FN", None)
+        monkeypatch.setattr(fa, "_FNS", {})
         before = dict(_build.KERNEL_LAUNCHES)
         q, k, v = (torch.from_numpy(x) for x in _qkv(6, t=50))
         fa.flash_mha(q, k, v)
@@ -119,6 +120,42 @@ class TestWrapper:
         env = dict(os.environ, PATH=str(tmp_path), PYTHONPATH=pythonpath)
         subprocess.run([sys.executable, "-c", code], env=env, cwd=tmp_path,
                        check=True, timeout=120)
+
+    def test_library_key_covers_included_headers(self, monkeypatch,
+                                                 tmp_path):
+        (tmp_path / "k.cu").write_text('#include "a.cuh"\nint k;\n')
+        (tmp_path / "a.cuh").write_text('#include "b.cuh"\n')
+        (tmp_path / "b.cuh").write_text("// v1\n")
+        (tmp_path / "c.cuh").write_text("// not included\n")
+        monkeypatch.setattr(_build, "CSRC_DIR", tmp_path)
+        assert [p.name for p in _build._sources("k")] == ["k.cu", "a.cuh",
+                                                          "b.cuh"]
+        before = _build.library_path("k")
+        (tmp_path / "c.cuh").write_text("// edited\n")
+        assert _build.library_path("k") == before
+        (tmp_path / "b.cuh").write_text("// v2\n")
+        assert _build.library_path("k") != before
+
+    def test_build_passes_the_csrc_include_dir(self, monkeypatch, tmp_path):
+        cmds = []
+
+        class FakeNvcc:
+            returncode = 0
+
+            def __init__(self, cmd, **kw):
+                cmds.append(cmd)
+                open(cmd[cmd.index("-o") + 1], "w").close()
+
+            def communicate(self):
+                return ("",)
+
+        monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+        monkeypatch.setattr(_build, "_nvcc", lambda: "nvcc")
+        monkeypatch.setattr(_build.subprocess, "Popen", FakeNvcc)
+        _build.build([fa.KERNEL, fa.BWD_LIBRARY])
+        assert len(cmds) == 2 and all(
+            cmd[cmd.index("-I") + 1] == str(_build.CSRC_DIR) for cmd in cmds)
+        assert _build.library_path(fa.BWD_LIBRARY).exists()
 
     def test_missing_nvcc_is_a_clear_error(self, monkeypatch, tmp_path):
         monkeypatch.setenv("PATH", str(tmp_path))

@@ -162,6 +162,23 @@ class TestWrapper:
                               reverse=True)
         assert _build.KERNEL_LAUNCHES == before
 
+    def test_kernel_path_refuses_autograd(self):
+        """The kernel has no backward yet: off the CPU, an input that
+        requires grad raises instead of leaving the graph cut.  (A meta
+        tensor stands in for a CUDA one; the guard runs before any launch.)
+        The CPU plain path stays differentiable."""
+        u, dt, A, B, C = (torch.from_numpy(x).to("meta")
+                          for x in _inputs(11, L=16, d=8))
+        with pytest.raises(NotImplementedError, match="slice 4"):
+            ss.selective_scan_fwd(u.requires_grad_(), dt, A, B, C)
+        with torch.no_grad():
+            assert not ss.needs_grad(u, dt)
+        assert ss.needs_grad(u, dt) and not ss.needs_grad(dt, A)
+        cpu = [torch.from_numpy(x) for x in _inputs(11, L=16, d=8)]
+        y, _ = ss.selective_scan_fwd(cpu[0].requires_grad_(), *cpu[1:])
+        y.sum().backward()
+        assert cpu[0].grad is not None and torch.isfinite(cpu[0].grad).all()
+
     @pytest.mark.parametrize("case", ["n", "shape", "dtype", "dt_dtype",
                                       "strided_u", "bc_strides", "groups"])
     def test_kernel_input_checks(self, case):

@@ -185,7 +185,13 @@ def test_package_imports_with_jax_blocked():
         deepsense6g_tii_tpu_torch.__path__, "deepsense6g_tii_tpu_torch.")]
     assert {"deepsense6g_tii_tpu_torch.ops.flash_attention",
             "deepsense6g_tii_tpu_torch.ops.selective_scan",
-            "deepsense6g_tii_tpu_torch.ops.mamba"} <= set(modules)
+            "deepsense6g_tii_tpu_torch.ops.mamba",
+            "deepsense6g_tii_tpu_torch.ops.dropout",
+            "deepsense6g_tii_tpu_torch.train.losses",
+            "deepsense6g_tii_tpu_torch.train.metrics",
+            "deepsense6g_tii_tpu_torch.train.scheduler",
+            "deepsense6g_tii_tpu_torch.train.state",
+            "deepsense6g_tii_tpu_torch.train.steps"} <= set(modules)
     code = ("import sys, importlib\n"
             "for m in ('jax', 'jaxlib', 'flax', 'deepsense6g_tii_tpu'):\n"
             "    sys.modules[m] = None\n"
