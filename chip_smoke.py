@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (deepsense6g_tii_tpu_torch) on one NVIDIA
-GPU: the quickest proof that the port builds, is right and serves.
+GPU: the quickest proof that the port builds, is right, serves and trains.
 
     python3 chip_smoke.py          # from the root of a checkout
 
@@ -20,7 +20,11 @@ Phases, in order; any failure exits non-zero and prints no result:
               plain stream for four seeds;
             - flash backward, merged and split, dropout 0 and 0.1, against
               the plain backward and against each other;
-            - the selective scan in both directions.
+            - the selective scan forward in both directions;
+            - the selective scan backward in both directions, on the
+              forward kernel's chunk-entry states (held against the plain
+              scan's states), with B and C column slices of a wider tensor
+              and one grouped-A case.
 4. gpt      serves the full-width GPT TransFuser (random weights from a
             seed, bf16) through Predictor with buckets (1, 8); checks the
             outputs, that padding leaves rows unchanged, that every forward
@@ -44,9 +48,14 @@ Phases, in order; any failure exits non-zero and prints no result:
             p50/p90, samples/s, peak memory and one profiled step.  Then the
             same weights in f32 take one step through the kernels and one
             through the plain attention path, at dropouts 0.1 and 0, and the
-            losses, gradients and new BatchNorm statistics must agree.  A
-            MambaFuser train step with the scan kernel must raise (the scan
-            has no backward yet).
+            losses, gradients and new BatchNorm statistics must agree.
+7. mamba train  the same for the full-width MambaFuser, the main path of
+            the selective-scan backward: every step launches exactly 67
+            scan forwards and 67 scan backwards and nothing else.  Then the
+            same weights in f32, cut to one MambaBlock per stage, take one
+            step through the scan kernels and one through the plain scan,
+            with reverse_scan_kernel off and on, held to the GPT step's
+            limits.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.  TF32 is switched off for
@@ -100,8 +109,21 @@ SCAN_LAUNCHES[(5, 1024)] = 3
 # sums differs (a sequential recurrence and a 16-term dot in the kernel, a
 # 10-level doubling tree and einsum in the plain version), and the kernel's
 # ex2.approx decay is within ~1e-6 relative of torch.exp's where it is not
-# ~0.  Measured ~1e-7 at every shape (NVIDIA H100 80GB HBM3; PERF.md)
+# ~0.  Measured ~1e-7 at every shape (NVIDIA H100 80GB HBM3; PERF.md).  The
+# forward's chunk-entry states h_in are held to the same bound.
 SCAN_RTOL = 1e-5
+# selective-scan backward: du, ddt, dA, dB and dC, each as max abs error
+# over max |plain|.  The kernel and the plain backward read the same inputs
+# widened to f32 and sum in f32 in other orders: step by step along the
+# recurrences and in 16-channel partials added in a second pass, against
+# doubling scans and whole-axis reductions; no atomics, so the kernel's
+# result does not change from run to run.  f32 gradients: 1e-4.  du, dB
+# and dC in bf16 are rounded from f32 on both sides, and a last-bit
+# difference moves a rounding by one bf16 ulp (2^-8 relative): 2 ulps of
+# the largest value.
+SCAN_BWD_RTOL = 1e-4
+SCAN_BWD_BF16_RTOL = 2.0 ** -7
+SCAN_GRADS = ("du", "ddt", "dA", "dB", "dC")
 
 
 # flash backward: largest error over the largest |plain| of dq, dk, dv.
@@ -172,10 +194,14 @@ def traced_kernels(fn, tries=3):
     fail(f"the profiler recorded no device time in {tries} traces")
 
 
-def device_ms(fn, iters=20, warmup=3):
+def device_ms(fn, iters=20, warmup=3, tries=3):
     """Device time of one call of ``fn``: the summed time of the kernels it
     launches, from torch.profiler, averaged over ``iters`` calls.  Unlike
-    :func:`time_ms`, it excludes the gaps while the host enqueues."""
+    :func:`time_ms`, it excludes the gaps while the host enqueues.  Every
+    kernel name must occur a multiple of ``iters`` times in the trace; a
+    trace where one does not (the profiler on the card's machine now and
+    then drops device events) is taken again, up to ``tries`` times."""
+    from collections import Counter
     for _ in range(warmup):
         fn()
 
@@ -183,8 +209,13 @@ def device_ms(fn, iters=20, warmup=3):
         for _ in range(iters):
             fn()
 
-    kernels, _ = traced_kernels(run)
-    return sum(e.time_range.elapsed_us() for e in kernels) / iters / 1e3
+    for _ in range(tries):
+        kernels, _ = traced_kernels(run)
+        counts = Counter(e.name for e in kernels)
+        if all(n % iters == 0 for n in counts.values()):
+            return sum(e.time_range.elapsed_us() for e in kernels) / iters / 1e3
+    fail(f"{tries} traces of {iters} calls dropped device events: "
+         f"{dict(counts)}")
 
 
 def phase_device():
@@ -214,7 +245,7 @@ def phase_device():
 def phase_build():
     from deepsense6g_tii_tpu_torch.ops import (_build, flash_attention,
                                                selective_scan)
-    kernels = [*flash_attention.LIBRARIES, selective_scan.KERNEL]
+    kernels = [*flash_attention.LIBRARIES, *selective_scan.LIBRARIES]
     t0 = time.perf_counter()
     logs = _build.build(kernels)
     print(f"build: {kernels} in {time.perf_counter() - t0:.1f} s")
@@ -415,20 +446,10 @@ def phase_flash_bwd():
 def split_kernel_ms(fa, q, k, v, o, lse, do, kw):
     """Device time of the dq and the dkv kernel alone, by their names in a
     trace of the split backward."""
-    import torch
-    fa.flash_mha_bwd(q, k, v, o, lse, do, mode="split", **kw)
-    iters = 10
-    kernels, _ = traced_kernels(lambda: [fa.flash_mha_bwd(
-        q, k, v, o, lse, do, mode="split", **kw) for _ in range(iters)])
-    torch.cuda.synchronize()
-    out = {}
-    for key, tag in (("dq_ms", "flash_bwd_dq_kernel"),
-                     ("dkv_ms", "flash_bwd_dkv_kernel")):
-        times = [e.time_range.elapsed_us() for e in kernels if tag in e.name]
-        check(len(times) == iters, f"trace holds {len(times)} {tag} "
-              f"launches, expected {iters}")
-        out[key] = sum(times) / iters / 1e3
-    return out
+    dq, dkv = named_kernel_ms(lambda: fa.flash_mha_bwd(
+        q, k, v, o, lse, do, mode="split", **kw),
+        ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"))
+    return {"dq_ms": dq, "dkv_ms": dkv}
 
 
 def sdpa_backward_ms(F, q, k, v, do, sm):
@@ -500,6 +521,140 @@ def phase_scan_kernel(sfu_rate):
             del u, dt, A, B, C, y, h, ry, rh
             torch.cuda.empty_cache()
     return rows
+
+
+def scan_inputs(gen, dtype, L, d, groups=0):
+    """Scan inputs shaped as the MambaFuser gives them: u, dt and dy
+    (BATCH, L, d), dt = softplus(N(0, 1)), A = -(1..16) per channel (halved
+    for a second group when ``groups`` is 2), and B and C as column slices
+    of an x_dbl (BATCH, L, d/32 + 32) after its dt_rank columns."""
+    import torch
+    import torch.nn.functional as F
+    rnd = lambda *s: torch.randn(*s, device=DEVICE, generator=gen)  # noqa: E731
+    u = rnd(BATCH, L, d).to(dtype)
+    dt = F.softplus(rnd(BATCH, L, d))
+    A = -torch.arange(1, D_STATE + 1, dtype=torch.float32,
+                      device=DEVICE).expand(d, D_STATE).contiguous()
+    if groups:
+        A = torch.stack([A, 0.5 * A])
+    r = d // 32
+    x_dbl = rnd(BATCH, L, r + 2 * D_STATE).to(dtype)
+    B, C = x_dbl[..., r:r + D_STATE], x_dbl[..., r + D_STATE:]
+    return u, dt, A, B, C, rnd(BATCH, L, d)
+
+
+def phase_scan_bwd(sfu_rate):
+    """The backward kernel in both directions against the plain backward,
+    on the forward kernel's chunk-entry states (themselves held against the
+    plain scan's states at the chunk boundaries), at the training path's
+    shapes in f32 and bf16, plus a grouped-A (G = 2) case; B and C are
+    column slices of a wider tensor throughout.  Timed with the plain
+    backward beside the bound."""
+    import torch
+    from deepsense6g_tii_tpu_torch.ops import selective_scan as ss
+
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    cases = [(dtype, L, d, 0) for dtype in (torch.float32, torch.bfloat16)
+             for L, d in SCAN_SHAPES]
+    cases += [(dtype, TOKENS, 256, 2)
+              for dtype in (torch.float32, torch.bfloat16)]
+    rows = []
+    for dtype, L, d, groups in cases:
+        dname = str(dtype).split(".")[1]
+        u, dt, A, B, C, dy = scan_inputs(gen, dtype, L, d, groups)
+        for reverse in (False, True):
+            _, _, h_in = ss._launch_fwd(u, dt, A, B, C, reverse, True)
+            got = ss.selective_scan_bwd(u, dt, A, B, C, dy, h_in,
+                                        reverse=reverse)
+            torch.cuda.synchronize()
+            ref_h = ss.chunk_states_reference(u, dt, A, B, C, reverse)
+            err_h = (h_in - ref_h).abs().max().item()
+            scale_h = ref_h.abs().max().item()
+            ref = ss.selective_scan_bwd_reference(u, dt, A, B, C, dy, reverse)
+            err, scale = {}, {}
+            for name, g, r in zip(SCAN_GRADS, got, ref):
+                check(g.shape == r.shape and g.dtype == r.dtype,
+                      f"scan backward {name}: {g.shape} {g.dtype}, plain "
+                      f"{r.shape} {r.dtype}")
+                err[name] = (g.float() - r.float()).abs().max().item()
+                scale[name] = r.float().abs().max().item()
+            tol = {k: SCAN_BWD_BF16_RTOL if (dname == "bfloat16" and k in (
+                "du", "dB", "dC")) else SCAN_BWD_RTOL for k in SCAN_GRADS}
+            label = (f"scan backward {dname} L={L} d={d} G={groups} "
+                     f"reverse={reverse}")
+            check(err_h <= SCAN_RTOL * scale_h, f"{label}: max |h_in err| "
+                  f"{err_h:.3g} of {scale_h:.3g} (rtol {SCAN_RTOL})")
+            check(all(err[k] <= tol[k] * scale[k] for k in SCAN_GRADS),
+                  f"{label}: max |err| {err} of max |plain| {scale} (rtol "
+                  f"{tol})")
+            row = dict(dtype=dname, L=L, d=d, groups=groups, reverse=reverse,
+                       rel_err={k: err[k] / scale[k] for k in SCAN_GRADS},
+                       h_in_rel_err=err_h / scale_h if scale_h else err_h,
+                       max_abs_err=max(err.values()))
+            if not groups:
+                row.update(scan_bwd_times(ss, u, dt, A, B, C, dy, h_in,
+                                          reverse, sfu_rate))
+            rows.append(row)
+            print("kernel selective_scan_bwd " + json.dumps(row))
+            del got, ref, ref_h, h_in
+        del u, dt, A, B, C, dy
+        torch.cuda.empty_cache()
+    return rows
+
+
+def scan_bwd_times(ss, u, dt, A, B, C, dy, h_in, reverse, sfu_rate):
+    """Device time of the backward (the kernel and the wrapper's sums of
+    the partials), the kernel alone, and the plain backward, beside the
+    bound, the larger of: the bytes the function must move (u, dt, dy, B,
+    C, A and h_in read once, du, ddt, dA, dB, dC written once) at the HBM
+    rate, and about 16 f32 operations per (t, d, n) at the CUDA-core rate.
+    Printed beside it, not part of it: the f32 partials of dB, dC and dA,
+    which this design writes and reads once more (partials_ms), and the
+    b·L·d·n exponentials at the SFU rate alone (exp_sfu_ms)."""
+    b, L, d = u.shape
+    es = u.element_size()
+    nd = -(-d // ss.CHANNELS_PER_BLOCK)
+    nbytes = (b * L * d * (es + 4 + 4) + 2 * b * L * D_STATE * es
+              + A.numel() * 4 + h_in.numel() * 4              # read
+              + b * L * d * (es + 4) + 2 * b * L * D_STATE * es
+              + A.numel() * 4)                                # written
+    partials = 2 * (2 * b * nd * L * D_STATE + b * d * D_STATE) * 4
+    flops = b * L * d * (16 * D_STATE + 4)
+    exps = b * L * d * D_STATE
+    times = {"bytes_ms": 1e3 * nbytes / PEAK_BYTES,
+             "ops_ms": 1e3 * flops / PEAK_FLOPS["float32"]}
+    bound = max(times, key=times.get)
+    wrapper = lambda: ss.selective_scan_bwd(  # noqa: E731
+        u, dt, A, B, C, dy, h_in, reverse=reverse)
+    return dict(
+        ms=device_ms(wrapper),
+        kernel_ms=named_kernel_ms(wrapper, ("scan_bwd_kernel",))[0],
+        event_ms=time_ms(wrapper),
+        plain_ms=device_ms(lambda: ss.selective_scan_bwd_reference(
+            u, dt, A, B, C, dy, reverse), iters=3, warmup=1),
+        bytes=nbytes, flops=flops, exps=exps, **times,
+        partials_bytes=partials, partials_ms=1e3 * partials / PEAK_BYTES,
+        exp_sfu_ms=1e3 * exps / sfu_rate, bound_ms=times[bound],
+        bound_by="bytes" if bound == "bytes_ms" else "operations")
+
+
+def named_kernel_ms(fn, tags, iters=10, tries=3):
+    """Device time per call of ``fn`` of each kernel whose name holds one
+    of ``tags``, from a trace of ``iters`` calls; each must launch once a
+    call.  A trace that holds fewer of them (the profiler on the card's
+    machine now and then drops device events) is taken again, up to
+    ``tries`` times."""
+    import torch
+    fn()
+    for _ in range(tries):
+        kernels, _ = traced_kernels(lambda: [fn() for _ in range(iters)])
+        torch.cuda.synchronize()
+        times = [[e.time_range.elapsed_us() for e in kernels if tag in e.name]
+                 for tag in tags]
+        if all(len(t) == iters for t in times):
+            return [sum(t) / iters / 1e3 for t in times]
+    fail(f"{tries} traces hold {[len(t) for t in times]} launches of "
+         f"{tags}, expected {iters} each")
 
 
 def phase_slice(card, name, cfg, expect, f32_runs, f32_checks):
@@ -622,24 +777,22 @@ def profile_call(fn, label, top=8):
     return out
 
 
-def phase_train(card):
-    """The main path of this slice: full-width GPT TransFuser training steps
-    through make_train_step.  Returns the launches of each step, the step's
-    numbers and the initial weights and batch (for phase_train_f32)."""
+def phase_train(card, name, cfg, expect):
+    """A main path: full-width training steps of ``cfg`` through
+    make_train_step; ``expect`` is the exact launches of every step.
+    Returns the step's numbers and the initial weights and batch (for the
+    f32 comparisons)."""
     import numpy as np
     import torch
     from deepsense6g_tii_tpu_torch.models.fuser import BeamFuser
     from deepsense6g_tii_tpu_torch.ops import _build
-    from deepsense6g_tii_tpu_torch.ops import flash_attention as fa
-    from deepsense6g_tii_tpu_torch.serve import gpt_transfuser_config
     from deepsense6g_tii_tpu_torch.train.state import create_train_state
     from deepsense6g_tii_tpu_torch.train.steps import make_train_step
     from deepsense6g_tii_tpu_torch.utils.synth import make_synth_batch
 
-    cfg = gpt_transfuser_config()
     check(cfg.n_tokens == TOKENS and cfg.n_layer == N_LAYER and min(
         cfg.embd_pdrop, cfg.attn_pdrop, cfg.resid_pdrop) == DROP_P,
-        f"train: unexpected geometry {cfg}")
+        f"{name}: unexpected geometry {cfg}")
     model = BeamFuser(cfg, device=DEVICE,
                       generator=torch.Generator().manual_seed(0))
     init = {k: v.detach().clone() for k, v in model.state_dict().items()}
@@ -647,7 +800,6 @@ def phase_train(card):
     step = make_train_step(model, cfg, state, use_ema=True, device=DEVICE)
     batch = {k: torch.from_numpy(v).to(DEVICE)
              for k, v in make_synth_batch(cfg, BATCH, seed=1).items()}
-    expect = {fa.KERNEL: 4 * N_LAYER, fa.KERNEL_MERGED: 4 * N_LAYER}
     losses, times, launches = [], [], []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -661,13 +813,14 @@ def phase_train(card):
         launches.append(dict(_build.KERNEL_LAUNCHES))
     peak = torch.cuda.max_memory_allocated()
     for i, counts in enumerate(launches):
-        check(counts == expect, f"train step {i}: launches {counts}, "
+        check(counts == expect, f"{name} step {i}: launches {counts}, "
               f"expected exactly {expect}")
-    check(all(np.isfinite(losses)), f"train: loss not finite: {losses}")
+    check(all(np.isfinite(losses)), f"{name}: loss not finite: {losses}")
     check(np.mean(losses[-5:]) < np.mean(losses[:5]) and losses[-1]
-          < losses[0], f"train: loss does not fall over {TRAIN_STEPS} "
+          < losses[0], f"{name}: loss does not fall over {TRAIN_STEPS} "
           f"steps: {losses}")
-    check(out["ranks"].shape == (BATCH, cfg.num_beams), "train: ranks shape")
+    check(out["ranks"].shape == (BATCH, cfg.num_beams),
+          f"{name}: ranks shape")
     t = np.asarray(times[1:])
     p50 = float(np.percentile(t, 50))
     result = {"batch": BATCH, "steps": TRAIN_STEPS, "lr": TRAIN_LR,
@@ -676,10 +829,10 @@ def phase_train(card):
               "samples_per_s": 1e3 * BATCH / p50,
               "peak_memory_gib": peak / 2 ** 30,
               "launches_per_step": launches[0]}
-    print(f"train on {card}: " + json.dumps(result))
+    print(f"{name} on {card}: " + json.dumps(result))
     result["profile"] = profile_call(
         lambda: step(batch, TRAIN_LR)["loss"].item(),
-        f"train profile step batch {BATCH} on {card}", top=10)
+        f"{name} profile step batch {BATCH} on {card}", top=10)
     del step, state, model
     torch.cuda.empty_cache()
     return result, init, batch
@@ -848,29 +1001,63 @@ def f32_gaps(a, b):
                                for k, s in sb.items())}
 
 
-def phase_scan_guard():
-    """The scan kernel has no backward yet: a MambaFuser train step that
-    would run it under autograd must raise, not train wrong."""
+def phase_train_mamba_f32(init, batch):
+    """One f32 MambaFuser training step through the scan kernels and one
+    through the plain scan, from the same weights with the same generators
+    (dropout 0.1: the same masks), with reverse_scan_kernel off and on, cut
+    to one MambaBlock per stage: at full depth the random-weight model is
+    ill-conditioned in f32 (PERF.md).  The losses, new BatchNorm
+    statistics and gradients are held to the GPT step's limits
+    (phase_train_f32)."""
     import torch
     from deepsense6g_tii_tpu_torch.models.fuser import BeamFuser
+    from deepsense6g_tii_tpu_torch.ops import _build
+    from deepsense6g_tii_tpu_torch.ops import selective_scan as ss
     from deepsense6g_tii_tpu_torch.serve import mambafuser_config
     from deepsense6g_tii_tpu_torch.train.state import create_train_state
     from deepsense6g_tii_tpu_torch.train.steps import make_train_step
-    from deepsense6g_tii_tpu_torch.utils.synth import make_synth_batch
 
-    cfg = mambafuser_config(n_layer=1)
-    model = BeamFuser(cfg, device=DEVICE,
-                      generator=torch.Generator().manual_seed(0))
-    step = make_train_step(model, cfg, create_train_state(model),
-                           device=DEVICE)
-    try:
-        step(make_synth_batch(cfg, 2, seed=3), TRAIN_LR)
-    except NotImplementedError as e:
-        print(f"scan guard: a MambaFuser train step raises: {e}")
-    else:
-        fail("a MambaFuser train step through the scan kernel did not raise")
-    del model, step
-    torch.cuda.empty_cache()
+    # one block a stage: 4 x 2 fusion scans, 3 TimeMamba scans
+    want = {False: {ss.KERNEL: 11, ss.KERNEL_BWD: 11},
+            True: {ss.KERNEL: 7, ss.KERNEL_REV: 4, ss.KERNEL_BWD: 7,
+                   ss.KERNEL_BWD_REV: 4}}
+    for rev in (False, True):
+        res = {}
+        for path in ("scan", "plain"):
+            cfg = mambafuser_config(compute_dtype="float32", n_layer=1,
+                                    use_pallas_scan=path == "scan",
+                                    reverse_scan_kernel=rev)
+            model = BeamFuser(cfg, device=DEVICE)
+            own = model.state_dict()
+            model.load_state_dict({k: v for k, v in init.items() if k in own},
+                                  strict=True)
+            step = make_train_step(model, cfg, create_train_state(model),
+                                   rng_seed=7, device=DEVICE)
+            _build.reset_launch_counts()
+            loss = step(batch, TRAIN_LR)["loss"].item()
+            counts = dict(_build.KERNEL_LAUNCHES)
+            check(counts == (want[rev] if path == "scan" else {}),
+                  f"f32 mamba train {path} reverse={rev}: launches {counts}")
+            res[path] = (loss,
+                         {k: q.grad.detach().clone()
+                          for k, q in model.named_parameters()},
+                         {k: b.clone() for k, b in model.named_buffers()})
+            del model, step
+            torch.cuda.empty_cache()
+        gap = f32_gaps(res["scan"], res["plain"])
+        print(f"f32 mamba train step, reverse_scan_kernel={rev}: "
+              + json.dumps({"scan_vs_plain": gap}))
+        check(gap["loss_rel"] <= TRAIN_LOSS_RTOL, f"f32 mamba train "
+              f"reverse={rev}: loss {gap['loss']} (scan, plain)")
+        check(gap["stats_worst"] <= TRAIN_STATS_RTOL, f"f32 mamba train "
+              f"reverse={rev}: BatchNorm statistics off by "
+              f"{gap['stats_worst']:.3g}")
+        check(gap["grad_global_rel"] <= TRAIN_GRAD_RTOL
+              and gap["grad_worst"] <= TRAIN_GRAD_TENSOR_RTOL,
+              f"f32 mamba train reverse={rev}: gradients off by "
+              f"{gap['grad_global_rel']:.3g} of their norm, "
+              f"{gap['grad_worst_name']} by {gap['grad_worst']:.3g} of its "
+              f"largest |g|")
 
 
 def per_forward(rows, launches, key):
@@ -897,6 +1084,7 @@ def main():
     mask_row = phase_mask()
     bwd_rows = phase_flash_bwd()
     scan_rows = phase_scan_kernel(sfu_rate)
+    scan_bwd_rows = phase_scan_bwd(sfu_rate)
 
     import torch
     from deepsense6g_tii_tpu_torch.ops import flash_attention as fa
@@ -929,13 +1117,21 @@ def main():
                                f"plain x{N_LAYER}"].abs().max().item()))
     checks.insert(0, (f"plain reverse x{N_LAYER}", f"plain x{N_LAYER}",
                       float("inf")))
-    mamba = phase_slice(card, "mamba", mambafuser_config(),
-                        {ss.KERNEL: sum(SCAN_LAUNCHES.values()), fa.KERNEL: 0},
-                        runs, checks)
-    train, init, batch = phase_train(card)
+    phase_slice(card, "mamba", mambafuser_config(),
+                {ss.KERNEL: sum(SCAN_LAUNCHES.values()), fa.KERNEL: 0},
+                runs, checks)
+    train, init, batch = phase_train(
+        card, "train", gpt_transfuser_config(),
+        {fa.KERNEL: 4 * N_LAYER, fa.KERNEL_MERGED: 4 * N_LAYER})
     phase_train_f32(init, batch)
     del init, batch
-    phase_scan_guard()
+    # this slice's main path: 67 forward and 67 backward scans a step
+    n_scan = sum(SCAN_LAUNCHES.values())
+    mtrain, init, batch = phase_train(
+        card, "mamba train", mambafuser_config(),
+        {ss.KERNEL: n_scan, ss.KERNEL_BWD: n_scan})
+    phase_train_mamba_f32(init, batch)
+    del init, batch
 
     # Per forward of the serving path at batch 8 in bf16: the flash kernel's
     # 8 launches at each of the four stage shapes (dropout 0); the scan's 16
@@ -947,25 +1143,38 @@ def main():
         {"launches": gpt[fa.KERNEL],
          **{k: summed(serve_fwd, k)
             for k in ("ms", "plain_ms", "bound_ms", "library_ms")}}))
-    scan_main = {(r["L"], r["d"]): r for r in scan_rows
-                 if r["dtype"] == "bfloat16" and not r["reverse"]}
-    scan_bytes_ms = per_forward(scan_main, SCAN_LAUNCHES, "bytes_ms")
-    scan_ops_ms = per_forward(scan_main, SCAN_LAUNCHES, "ops_ms")
-    print(f"scan per forward: bound by bytes {scan_bytes_ms:.6g} ms, by "
-          f"operations {scan_ops_ms:.6g} ms, exponentials "
-          f"{per_forward(scan_main, SCAN_LAUNCHES, 'exps')} "
-          f"({per_forward(scan_main, SCAN_LAUNCHES, 'exp_sfu_ms'):.6g} ms "
-          f"at the SFU rate)")
-    # with reverse_scan_kernel on, the 8 backward branches of each stage
-    # run the reverse direction instead
-    scan_rev = {(r["L"], r["d"]): r for r in scan_rows
-                if r["dtype"] == "bfloat16" and r["reverse"]
-                and r["L"] == TOKENS}
+    # The scan kernels at batch 8 in bf16: per serving forward or training
+    # step, 16 launches at each stage's d_inner (L = 962) and 3 in the
+    # TimeMamba head (L = 5) with reverse_scan_kernel off, the forward (#6)
+    # and the backward (#9) alike; with it on, the 8 backward branches of
+    # each stage run the reverse kernels (#7, #10) instead.  Bounds: the
+    # larger of bytes and f32 operations at each shape.
+    def scan_rows_by_shape(rows, reverse):
+        return {(r["L"], r["d"]): r for r in rows
+                if r["dtype"] == "bfloat16" and r["reverse"] == reverse
+                and not r.get("groups") and (not reverse or r["L"] == TOKENS)}
+
+    scan_main, scan_rev = (scan_rows_by_shape(scan_rows, rev)
+                           for rev in (False, True))
+    bwd_main, bwd_rev = (scan_rows_by_shape(scan_bwd_rows, rev)
+                         for rev in (False, True))
     rev_n = {shape: N_LAYER for shape in scan_rev}
-    print("scan reverse per forward (reverse_scan_kernel=True): " + json.dumps(
-        {"launches": sum(rev_n.values()),
-         **{k: per_forward(scan_rev, rev_n, k)
-            for k in ("ms", "plain_ms", "bound_ms", "exp_sfu_ms")}}))
+    scan_sums = {}
+    for label, rows, n in (("scan forward per forward", scan_main,
+                            SCAN_LAUNCHES),
+                           ("scan reverse per forward (reverse_scan_kernel)",
+                            scan_rev, rev_n),
+                           ("scan backward per training step", bwd_main,
+                            SCAN_LAUNCHES),
+                           ("scan backward reverse per training step "
+                            "(reverse_scan_kernel)", bwd_rev, rev_n)):
+        keys = ["ms", "plain_ms", "bound_ms", "bytes_ms", "ops_ms",
+                "exp_sfu_ms", "exps"] + (["kernel_ms", "partials_ms"]
+                                         if rows is bwd_main
+                                         or rows is bwd_rev else [])
+        scan_sums[label] = {"launches": sum(n.values()),
+                            **{k: per_forward(rows, n, k) for k in keys}}
+        print(f"{label}: " + json.dumps(scan_sums[label]))
 
     # Per training step at batch 8 in bf16, dropout 0.1: 8 launches at each
     # stage shape.  The split pair (dq + dkv) is not on the path (the
@@ -1015,17 +1224,28 @@ def main():
               summed(bwd, "dkv_bound_ms"), bound_by(bwd, "dkv_bound_by"),
               summed(bwd, "plain_ms"), None,
               max(max(r["err"]["split"][1:]) for r in bwd)),
-        {"name": ss.KERNEL, "route": "cuda",
-         "source": "deepsense6g_tii_tpu_torch/csrc/selective_scan_fwd.cu",
-         "replaces": "deepsense6g_tii_tpu/ops/selective_scan.py:206",
-         "launches": mamba[ss.KERNEL],
-         "max_abs_err": max(r["max_abs_err"] for r in scan_main.values()),
-         "ms": per_forward(scan_main, SCAN_LAUNCHES, "ms"),
-         "plain_ms": per_forward(scan_main, SCAN_LAUNCHES, "plain_ms"),
-         "bound_ms": per_forward(scan_main, SCAN_LAUNCHES, "bound_ms"),
-         "bound_by": "bytes" if scan_bytes_ms >= scan_ops_ms
-         else "operations",
-         "library_ms": None}]
+    ]
+    msteps = mtrain["launches_per_step"]
+    for name, line, rows, n in (
+            (ss.KERNEL, 206, scan_main, SCAN_LAUNCHES),
+            (ss.KERNEL_REV, 234, scan_rev, rev_n),
+            (ss.KERNEL_BWD, 354, bwd_main, SCAN_LAUNCHES),
+            (ss.KERNEL_BWD_REV, 449, bwd_rev, rev_n)):
+        source = "fwd" if name in (ss.KERNEL, ss.KERNEL_REV) else "bwd"
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"deepsense6g_tii_tpu_torch/csrc/selective_scan_"
+                      f"{source}.cu",
+            "replaces": f"deepsense6g_tii_tpu/ops/selective_scan.py:{line}",
+            "launches": msteps.get(name, 0),
+            "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
+            "ms": per_forward(rows, n, "ms"),
+            "plain_ms": per_forward(rows, n, "plain_ms"),
+            "bound_ms": per_forward(rows, n, "bound_ms"),
+            "bound_by": ("bytes" if per_forward(rows, n, "bytes_ms")
+                         >= per_forward(rows, n, "ops_ms")
+                         else "operations"),
+            "library_ms": None})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,8 +12,12 @@
 // kernels on the MambaFuser's serving path: 64 launches per forward in the
 // fusion stages (4 stages x 8 MambaBlocks x 2 directions) at L = 962 and
 // d = 128, 256, 512, 1024, plus 3 in the TimeMamba head at L = 5, d = 1024.
-// The chunk-entry states h_in, which only the backward reads, are not
-// written here.
+// Under autograd it also writes the chunk-entry states h_in (b, n_chunks,
+// n, d) f32, one per TL steps (selective_scan.cuh), from which the backward
+// (selective_scan_bwd.cu) recomputes the states, as the TPU kernel writes
+// hin_ref.  The store is a compile-time flag (SAVE): the serving path passes
+// a null h_in and runs the instantiation without it, the same code as
+// before h_in existed.
 //
 // Semantics kept from the TPU kernel: u, B and C are f32 or bf16 and are
 // widened to f32 on load; dt and A are f32; the state and every sum are
@@ -50,35 +54,18 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "selective_scan.cuh"
+
 namespace {
 
-constexpr int N = 16;          // states per channel (d_state)
-constexpr int NPT = 4;         // states per thread
-constexpr int LPC = N / NPT;   // lanes per channel
-constexpr int DT = 16;         // channels per block
-constexpr int NT = DT * LPC;   // threads per block
-constexpr int TL = 64;         // time steps per chunk
+using namespace sscan;
+
 constexpr int SUB = 8;         // steps per group of the inner loop
 constexpr int RU = TL * DT / NT;  // u/dt tile elements per thread
 constexpr int RB = TL * N / NT;   // B/C tile elements per thread
 
 static_assert(TL * DT % NT == 0 && TL * N % NT == 0 && TL % SUB == 0,
               "tile split");
-
-constexpr float LOG2E = 1.4426950408889634f;
-
-__device__ __forceinline__ float widen(float x) { return x; }
-__device__ __forceinline__ float widen(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-// 2^x by the special-function unit (MUFU.EX2), relative error ~2^-22;
-// subnormal results flush to 0
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
 
 // One chunk's inputs as this thread loads them: element r of the u/dt tile
 // is (tt, cc) = ((tid + r*NT) / DT, (tid + r*NT) % DT); element r of the
@@ -117,13 +104,13 @@ __device__ __forceinline__ void load_chunk(
   }
 }
 
-template <typename T, bool REV>
+template <typename T, bool REV, bool SAVE>
 __global__ void __launch_bounds__(NT)
 scan_fwd_kernel(const T* __restrict__ u, const float* __restrict__ dt,
                 const float* __restrict__ A, const T* __restrict__ bm,
                 const T* __restrict__ cm, float* __restrict__ y,
-                float* __restrict__ h_out, int L, int d, int bg,
-                long long bc_sb, long long bc_sl) {
+                float* __restrict__ h_out, float* __restrict__ h_in, int L,
+                int d, int bg, long long bc_sb, long long bc_sl) {
   __shared__ float s_dt[TL][DT];
   __shared__ float s_dtu[TL][DT];  // dt * u, once per (step, channel)
   __shared__ float s_y[TL][DT];
@@ -149,15 +136,23 @@ scan_fwd_kernel(const T* __restrict__ u, const float* __restrict__ dt,
     h[j] = 0.f;
   }
 
-  // chunk k covers steps [t0, t0 + TL); the reverse direction visits the
-  // chunks from the end, so its last chunk may start before 0
-  const int nchunks = (L + TL - 1) / TL;
-  auto chunk_start = [&](int k) { return REV ? L - (k + 1) * TL : k * TL; };
+  // visit k runs chunk ci(k) of the natural order, covering steps
+  // [t0, t0 + TL); the reverse direction visits the chunks from the end,
+  // so its last visit may start before 0
+  const int nchunks = num_chunks(L);
+  auto ci = [&](int k) { return REV ? nchunks - 1 - k : k; };
 
   Chunk<T> next;
-  load_chunk(next, u, dt, bm, cm, row0, chunk_start(0), L, d, d0, bc_sl);
+  load_chunk(next, u, dt, bm, cm, row0, chunk_start(REV, ci(0), nchunks, L),
+             L, d, d0, bc_sl);
   for (int k = 0; k < nchunks; ++k) {
-    const int t0 = chunk_start(k);
+    const int t0 = chunk_start(REV, ci(k), nchunks, L);
+    if (SAVE && valid) {
+      // the state entering the chunk, keyed by its natural index
+      float* hrow = h_in + (((size_t)b * nchunks + ci(k)) * N + g * NPT) * d;
+#pragma unroll
+      for (int j = 0; j < NPT; ++j) hrow[(size_t)j * d + ch] = h[j];
+    }
 #pragma unroll
     for (int r = 0; r < RU; ++r) {
       const int idx = tid + r * NT;
@@ -173,8 +168,8 @@ scan_fwd_kernel(const T* __restrict__ u, const float* __restrict__ dt,
     __syncthreads();
     // the next chunk's loads are in flight while this one runs
     if (k + 1 < nchunks)
-      load_chunk(next, u, dt, bm, cm, row0, chunk_start(k + 1), L, d, d0,
-                 bc_sl);
+      load_chunk(next, u, dt, bm, cm, row0,
+                 chunk_start(REV, ci(k + 1), nchunks, L), L, d, d0, bc_sl);
 
     // steps [lo, hi) of the tile are real; the loop runs them in groups of
     // SUB and rounds the count up: a padded step reads dt = 0 and u = 0,
@@ -242,30 +237,46 @@ scan_fwd_kernel(const T* __restrict__ u, const float* __restrict__ dt,
   }
 }
 
-template <typename T, bool REV>
+template <typename T, bool REV, bool SAVE>
 cudaError_t launch(const void* u, const void* dt, const void* A,
                    const void* bm, const void* cm, void* y, void* h_out,
-                   int batch, int L, int d, int groups, long long bc_sb,
-                   long long bc_sl, cudaStream_t stream) {
+                   void* h_in, int batch, int L, int d, int groups,
+                   long long bc_sb, long long bc_sl, cudaStream_t stream) {
   const dim3 grid((d + DT - 1) / DT, batch);
-  scan_fwd_kernel<T, REV><<<grid, NT, 0, stream>>>(
+  scan_fwd_kernel<T, REV, SAVE><<<grid, NT, 0, stream>>>(
       static_cast<const T*>(u), static_cast<const float*>(dt),
       static_cast<const float*>(A), static_cast<const T*>(bm),
       static_cast<const T*>(cm), static_cast<float*>(y),
-      static_cast<float*>(h_out), L, d, batch / groups, bc_sb, bc_sl);
+      static_cast<float*>(h_out), static_cast<float*>(h_in), L, d,
+      batch / groups, bc_sb, bc_sl);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool SAVE>
 cudaError_t dispatch_dir(int reverse, const void* u, const void* dt,
                          const void* A, const void* bm, const void* cm,
-                         void* y, void* h_out, int batch, int L, int d,
-                         int groups, long long bc_sb, long long bc_sl,
+                         void* y, void* h_out, void* h_in, int batch, int L,
+                         int d, int groups, long long bc_sb, long long bc_sl,
                          cudaStream_t s) {
-  return reverse ? launch<T, true>(u, dt, A, bm, cm, y, h_out, batch, L, d,
-                                   groups, bc_sb, bc_sl, s)
-                 : launch<T, false>(u, dt, A, bm, cm, y, h_out, batch, L, d,
-                                    groups, bc_sb, bc_sl, s);
+  return reverse ? launch<T, true, SAVE>(u, dt, A, bm, cm, y, h_out, h_in,
+                                         batch, L, d, groups, bc_sb, bc_sl, s)
+                 : launch<T, false, SAVE>(u, dt, A, bm, cm, y, h_out, h_in,
+                                          batch, L, d, groups, bc_sb, bc_sl,
+                                          s);
+}
+
+template <typename T>
+cudaError_t dispatch(int reverse, const void* u, const void* dt,
+                     const void* A, const void* bm, const void* cm, void* y,
+                     void* h_out, void* h_in, int batch, int L, int d,
+                     int groups, long long bc_sb, long long bc_sl,
+                     cudaStream_t s) {
+  return h_in ? dispatch_dir<T, true>(reverse, u, dt, A, bm, cm, y, h_out,
+                                      h_in, batch, L, d, groups, bc_sb,
+                                      bc_sl, s)
+              : dispatch_dir<T, false>(reverse, u, dt, A, bm, cm, y, h_out,
+                                       h_in, batch, L, d, groups, bc_sb,
+                                       bc_sl, s);
 }
 
 }  // namespace
@@ -274,13 +285,14 @@ cudaError_t dispatch_dir(int reverse, const void* u, const void* dt,
 // dt: (batch, L, d) f32 contiguous; A: (groups, d, n) f32 contiguous;
 // B, C: (batch, L, n) in u's dtype, element (b, t, k) at
 // b*bc_batch_stride + t*bc_row_stride + k; y: (batch, L, d) f32;
-// h_out: (batch, n, d) f32.  n must be 16 and groups must divide batch.
-// Launches on `stream` without synchronising and returns
-// cudaGetLastError() of the launch.
+// h_out: (batch, n, d) f32; h_in: null, or (batch, ceil(L / TL), n, d) f32
+// for the chunk-entry states (TL in selective_scan.cuh).  n must be 16 and
+// groups must divide batch.  Launches on `stream` without
+// synchronising and returns cudaGetLastError() of the launch.
 extern "C" int selective_scan_fwd(const void* u, const void* dt,
                                   const void* A, const void* B, const void* C,
-                                  void* y, void* h_out, int batch, int L,
-                                  int d, int n, int groups,
+                                  void* y, void* h_out, void* h_in,
+                                  int batch, int L, int d, int n, int groups,
                                   long long bc_batch_stride,
                                   long long bc_row_stride, int is_bf16,
                                   int reverse, void* stream) {
@@ -289,11 +301,11 @@ extern "C" int selective_scan_fwd(const void* u, const void* dt,
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return (int)(is_bf16
-                   ? dispatch_dir<__nv_bfloat16>(reverse, u, dt, A, B, C, y,
-                                                 h_out, batch, L, d, groups,
-                                                 bc_batch_stride,
-                                                 bc_row_stride, s)
-                   : dispatch_dir<float>(reverse, u, dt, A, B, C, y, h_out,
-                                         batch, L, d, groups, bc_batch_stride,
-                                         bc_row_stride, s));
+                   ? dispatch<__nv_bfloat16>(reverse, u, dt, A, B, C, y,
+                                             h_out, h_in, batch, L, d, groups,
+                                             bc_batch_stride, bc_row_stride,
+                                             s)
+                   : dispatch<float>(reverse, u, dt, A, B, C, y, h_out, h_in,
+                                     batch, L, d, groups, bc_batch_stride,
+                                     bc_row_stride, s));
 }

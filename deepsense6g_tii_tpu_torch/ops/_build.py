@@ -11,9 +11,11 @@ import: a wrapper calls
 :func:`load` when a CUDA tensor first reaches it.  No PyTorch header is
 compiled, so a build takes seconds.
 
-``KERNEL_LAUNCHES`` counts launches per kernel name.  A wrapper adds one
-where it launches its kernel and nowhere else, so a caller can reset the
-counts, run the model and see which kernels the run went through.
+:func:`launch` calls a kernel's C entry point on the current stream and
+raises on the CUDA error it returns.  ``KERNEL_LAUNCHES`` counts launches
+per kernel name: :func:`launch` adds one where it launches a kernel and
+nowhere else, so a caller can reset the counts, run the model and see which
+kernels the run went through.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ import re
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Callable, Dict, Iterable, Sequence
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 
@@ -47,6 +49,7 @@ CUDA_NVCC = "/usr/local/cuda/bin/nvcc"
 
 KERNEL_LAUNCHES: Dict[str, int] = {}
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_FNS: Dict[str, Callable] = {}
 
 
 def count_launch(name: str) -> None:
@@ -81,6 +84,18 @@ def _sources(name: str) -> list:
                  for inc in _INCLUDE.findall(path.read_bytes())
                  if (CSRC_DIR / inc.decode()).is_file()]
     return paths
+
+
+_CONSTEXPR = re.compile(rb"^\s*constexpr\s+int\s+(\w+)\s*=\s*(\d+)\s*;",
+                        re.M)
+
+
+def header_constants(header: str) -> Dict[str, int]:
+    """The integer literals ``constexpr int NAME = value;`` of
+    ``csrc/<header>``: the layout constants that a wrapper sizes its
+    buffers by, read from the one place the kernels state them."""
+    return {k.decode(): int(v) for k, v in
+            _CONSTEXPR.findall((CSRC_DIR / header).read_bytes())}
 
 
 def library_path(name: str) -> Path:
@@ -127,3 +142,22 @@ def load(name: str) -> ctypes.CDLL:
         build([name])
         lib = _LIBS[name] = ctypes.CDLL(str(library_path(name)))
     return lib
+
+
+def launch(library: str, fname: str, argtypes: Sequence, count_as: str,
+           device, *args) -> None:
+    """Calls ``fname`` of ``csrc/<library>.cu`` (built and loaded at first
+    use; ``argtypes`` are its ctypes argument types, the stream last) with
+    ``args`` and ``device``'s current stream, raises if it returns a CUDA
+    error, and counts one launch of ``count_as``."""
+    import torch
+    fn = _FNS.get(fname)
+    if fn is None:
+        fn = getattr(load(library), fname)
+        fn.argtypes, fn.restype = list(argtypes), ctypes.c_int
+        _FNS[fname] = fn
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"{fname} launch failed with CUDA error {err}")
+    count_launch(count_as)

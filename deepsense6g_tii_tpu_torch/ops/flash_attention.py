@@ -52,7 +52,6 @@ HEAD_DIMS = (16, 32, 64, 128)
 DEFAULT_BLOCK = 512
 _DTYPES = (torch.float32, torch.bfloat16)
 _U32 = 0xFFFFFFFF
-_FNS = {}
 
 # the merged backward's dq accumulator budget on the TPU; kept so that
 # DEEPSENSE_FLASH_BWD=auto picks what the JAX package picks
@@ -194,23 +193,9 @@ _SIGNATURES = {
 }
 
 
-def _kernel_fn(fname: str):
-    fn = _FNS.get(fname)
-    if fn is None:
-        library, argtypes = _SIGNATURES[fname]
-        fn = getattr(_build.load(library), fname)
-        fn.argtypes, fn.restype = argtypes, ctypes.c_int
-        _FNS[fname] = fn
-    return fn
-
-
 def _launch(fname: str, count_as: str, device, *args) -> None:
-    with torch.cuda.device(device):
-        err = _kernel_fn(fname)(*args,
-                                torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(f"{fname} launch failed with CUDA error {err}")
-    _build.count_launch(count_as)
+    library, argtypes = _SIGNATURES[fname]
+    _build.launch(library, fname, argtypes, count_as, device, *args)
 
 
 def _check_kernel_inputs(q, k, v, *more):

@@ -13,11 +13,16 @@ run is therefore reproducible from ``rng_seed``, and no draw touches
 torch's global RNG.  (The JAX package folds the step into a PRNGKey; its
 bits cannot be matched, so a comparison with it runs at dropout 0.)
 
-Run as a script, it trains the full-width GPT TransFuser (random weights,
-seed 0) on one fixed synthetic batch on the GPU and prints one JSON line:
-the loss per step, the step-time p50/p90 and samples/s:
+Run as a script, it trains a full-width model (random weights, seed 0)
+on one fixed synthetic batch on the GPU and prints one JSON line: the loss
+per step, the step-time p50/p90 and samples/s.  ``--FFM 1 --TFM 1``, the
+defaults as in the JAX train CLI, train the MambaFuser through the
+selective-scan kernels (``--reverse_scan_kernel`` runs its backward
+branches through the reverse ones); ``--FFM 0 --TFM 0`` the GPT
+TransFuser through the flash-attention kernels:
 
     python -m deepsense6g_tii_tpu_torch.train.steps --batch 8 --steps 20
+    python -m deepsense6g_tii_tpu_torch.train.steps --FFM 0 --TFM 0
 
 Not in the port: ``steps_per_dispatch`` (the TPU's K-step ``lax.scan``
 dispatch) and ``flatten_accum`` (ROADMAP.md Queue 1 item 2).
@@ -217,7 +222,7 @@ def main(argv=None) -> int:
     import time
 
     from ..models.fuser import BeamFuser
-    from ..serve import gpt_transfuser_config
+    from ..serve import gpt_transfuser_config, mambafuser_config
     from ..utils.synth import make_synth_batch
     from .state import create_train_state
 
@@ -225,9 +230,13 @@ def main(argv=None) -> int:
     p.add_argument("--batch", type=int, default=8)
     p.add_argument("--steps", type=int, default=20)
     p.add_argument("--lr", type=float, default=1e-4)
+    p.add_argument("--FFM", type=int, default=1)
+    p.add_argument("--TFM", type=int, default=1)
+    p.add_argument("--reverse_scan_kernel", action="store_true")
     a = p.parse_args(argv)
     dev = resolve_device("cuda")
-    cfg = gpt_transfuser_config()
+    config = mambafuser_config if a.FFM else gpt_transfuser_config
+    cfg = config(TFM=a.TFM, reverse_scan_kernel=a.reverse_scan_kernel)
     model = BeamFuser(cfg, device=dev,
                       generator=torch.Generator().manual_seed(0))
     state = create_train_state(model)
@@ -243,7 +252,8 @@ def main(argv=None) -> int:
     t = np.asarray(times[1:] if len(times) > 1 else times)
     p50 = float(np.percentile(t, 50))
     print(json.dumps({
-        "device": torch.cuda.get_device_name(dev), "batch": a.batch,
+        "device": torch.cuda.get_device_name(dev), "FFM": cfg.FFM,
+        "TFM": cfg.TFM, "batch": a.batch,
         "steps": a.steps, "lr": a.lr, "loss": losses, "step_ms_p50": p50,
         "step_ms_p90": float(np.percentile(t, 90)),
         "samples_per_s": 1e3 * a.batch / p50,

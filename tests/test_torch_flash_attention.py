@@ -83,7 +83,7 @@ class TestWrapper:
             raise AssertionError(f"kernel {name} loaded for a CPU tensor")
 
         monkeypatch.setattr(_build, "load", no_build)
-        monkeypatch.setattr(fa, "_FNS", {})
+        monkeypatch.setattr(_build, "_FNS", {})
         before = dict(_build.KERNEL_LAUNCHES)
         q, k, v = (torch.from_numpy(x) for x in _qkv(6, t=50))
         fa.flash_mha(q, k, v)
