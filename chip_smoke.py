@@ -24,7 +24,17 @@ Phases, in order; any failure exits non-zero and prints no result:
             - the selective scan backward in both directions, on the
               forward kernel's chunk-entry states (held against the plain
               scan's states), with B and C column slices of a wider tensor
-              and one grouped-A case.
+              and one grouped-A case;
+            - the sequential selective-scan forward (variant="sequential")
+              against its plain loop and against the chunked forward on the
+              same inputs, its chunk-entry states against the plain states,
+              its gradient (through the chunked backward) against the
+              chunked variant's, and reverse=True refused;
+            - the roofline calibration chain, k multiplies (equal to the
+              plain chain element for element) or k exponentials, at both
+              chain lengths, each at least twice its bytes' time; the SASS
+              of each instantiation is a loop body of exactly 16·U FMULs
+              (and 16·U MUFU.EX2): 16 elements a thread, U steps a body.
 4. gpt      serves the full-width GPT TransFuser (random weights from a
             seed, bf16) through Predictor with buckets (1, 8); checks the
             outputs, that padding leaves rows unchanged, that every forward
@@ -56,6 +66,12 @@ Phases, in order; any failure exits non-zero and prints no result:
             step through the scan kernels and one through the plain scan,
             with reverse_scan_kernel off and on, held to the GPT step's
             limits.
+8. roofline  the kernel-tool path: python -m deepsense6g_tii_tpu_torch.tools.
+            scan_roofline's main (the chain calibration, the chunked and
+            sequential scan forwards and the backward at B=16, L=962,
+            d=1024), its JSON line printed; it must launch the chain, both
+            forwards and the backward, and its calibrated FMUL rate must not
+            exceed 105% of SMs x 128 lanes x the SM clock.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.  TF32 is switched off for
@@ -78,9 +94,6 @@ DEVICE = "cuda"
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 PEAK_BYTES = 3.35e12
 
-# H100 SXM special-function units: 16 exponentials a clock per SM (CUDA C
-# programming guide, throughput of exp2 at compute capability 9.0)
-SFU_PER_SM_CLOCK = 16
 
 BATCH = 8            # serving bucket
 HEADS = 4
@@ -124,6 +137,13 @@ SCAN_RTOL = 1e-5
 SCAN_BWD_RTOL = 1e-4
 SCAN_BWD_BF16_RTOL = 2.0 ** -7
 SCAN_GRADS = ("du", "ddt", "dA", "dB", "dC")
+# the sequential forward's gradients against the chunked forward's, f32, of
+# each gradient's largest element: the same backward kernel on the same
+# inputs, given chunk-entry states that differ by rounding alone
+SEQ_GRAD_RTOL = 1e-5
+# the exp chain against its plain version, relative: ex2.approx is within
+# ~2^-22 of exp2 and each step's map contracts (|slope| < 0.42)
+CHAIN_EXP_RTOL = 1e-5
 
 
 # flash backward: largest error over the largest |plain| of dq, dk, dv.
@@ -159,17 +179,10 @@ def check(cond, msg):
 
 
 def time_ms(fn, iters=20, warmup=3):
-    import torch
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    """Milliseconds per call of ``fn`` on the card by CUDA events, the calls
+    queued behind a spin kernel (tools/timing.py)."""
+    from deepsense6g_tii_tpu_torch.tools import timing
+    return timing.time_ms(fn, DEVICE, iters=iters, warmup=warmup)
 
 
 def traced_kernels(fn, tries=3):
@@ -224,28 +237,27 @@ def phase_device():
              "run from the root of a checkout")
     import torch
     check(torch.cuda.is_available(), "CUDA is not available")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60, check=True)
-    card = smi.stdout.strip().splitlines()[0]
+    from deepsense6g_tii_tpu_torch.tools import timing
+    card = timing.card()
     print(f"card: {card}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
-                          "--format=csv,noheader,nounits"],
-                         capture_output=True, text=True, timeout=60,
-                         check=True)
-    sm_clock_hz = 1e6 * float(smi.stdout.split()[0])
-    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-    return card, n_sm * SFU_PER_SM_CLOCK * sm_clock_hz
+    # the SMs' exp2 and FMUL rates at the largest SM clock (16 and 128 a
+    # clock per SM on an H100: CUDA C programming guide, compute capability
+    # 9.0)
+    rates = timing.datasheet_rates()
+    print(f"data-sheet rates: {json.dumps(rates)}")
+    return card, rates["exp_per_s"], rates["fmul_per_s"]
 
 
 def phase_build():
     from deepsense6g_tii_tpu_torch.ops import (_build, flash_attention,
                                                selective_scan)
-    kernels = [*flash_attention.LIBRARIES, *selective_scan.LIBRARIES]
+    from deepsense6g_tii_tpu_torch.tools import scan_roofline
+    kernels = [*flash_attention.LIBRARIES, *selective_scan.LIBRARIES,
+               *scan_roofline.LIBRARIES]
     t0 = time.perf_counter()
     logs = _build.build(kernels)
     print(f"build: {kernels} in {time.perf_counter() - t0:.1f} s")
@@ -257,6 +269,34 @@ def phase_build():
         print(f"  {name} ptxas: {regs}; {spills}")
     for name in kernels:
         _build.load(name)
+    chain_sass(_build.library_path(scan_roofline.LIBRARY))
+
+
+def chain_sass(library):
+    """The SASS of each chain instantiation (cuobjdump -sass): a loop body
+    of exactly 16·U FMULs, and 16·U MUFU.EX2 for the exp chain (16 elements
+    a thread, U steps a body, k / U trips), so that the calibration counts
+    what the card issues."""
+    import re
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(library)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    found = {}
+    for fn in re.split(r"\n\s*Function : ", sass)[1:]:
+        m = re.search(r"chain_kernelILi(\d+)ELb([01])E", fn.split("\n")[0])
+        if m:
+            found[(int(m.group(1)), m.group(2) == "1")] = (
+                len(re.findall(r"\bFMUL\b", fn)),
+                len(re.findall(r"MUFU\.EX2", fn)))
+    from deepsense6g_tii_tpu_torch.ops import _build
+    body = 16 * _build.header_constants("scan_roofline_chain.cu")["U"]
+    print(f"chain SASS (k, exp): (FMUL, MUFU.EX2) a loop body: {found}")
+    check(len(found) == 4 and all(
+        counts == (body, body if use_exp else 0)
+        for (k, use_exp), counts in found.items()),
+        f"chain SASS: expected {body} FMUL (and MUFU.EX2) a body, got "
+        f"{found}")
 
 
 def phase_flash_kernel():
@@ -495,12 +535,7 @@ def phase_scan_kernel(sfu_rate):
                       f"max |y err| {err_y:.3g} of max |y| {scale_y:.3g}, "
                       f"max |h_out err| {err_h:.3g} of {scale_h:.3g} "
                       f"(rtol {SCAN_RTOL})")
-                esize = u.element_size()
-                nbytes = (BATCH * L * d * (esize + 4 + 4)
-                          + 2 * BATCH * L * D_STATE * esize
-                          + d * D_STATE * 4 + BATCH * D_STATE * d * 4)
-                flops = BATCH * L * d * (7 * D_STATE + 1)
-                exps = BATCH * L * d * D_STATE
+                nbytes, flops, exps = scan_fwd_work(L, d, u.element_size())
                 t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_FLOPS[
                     "float32"]
                 kernel = lambda: ss.selective_scan_fwd(  # noqa: E731
@@ -521,6 +556,16 @@ def phase_scan_kernel(sfu_rate):
             del u, dt, A, B, C, y, h, ry, rh
             torch.cuda.empty_cache()
     return rows
+
+
+def scan_fwd_work(L, d, esize):
+    """The scan forward's work at BATCH rows: the bytes it must move (u,
+    dt, B, C and A read once, y and h_out written once), its f32 operations
+    and its exponentials."""
+    nbytes = (BATCH * L * d * (esize + 4 + 4) + 2 * BATCH * L * D_STATE * esize
+              + d * D_STATE * 4 + BATCH * D_STATE * d * 4)
+    return (nbytes, BATCH * L * d * (7 * D_STATE + 1),
+            BATCH * L * d * D_STATE)
 
 
 def scan_inputs(gen, dtype, L, d, groups=0):
@@ -636,6 +681,200 @@ def scan_bwd_times(ss, u, dt, A, B, C, dy, h_in, reverse, sfu_rate):
         partials_bytes=partials, partials_ms=1e3 * partials / PEAK_BYTES,
         exp_sfu_ms=1e3 * exps / sfu_rate, bound_ms=times[bound],
         bound_by="bytes" if bound == "bytes_ms" else "operations")
+
+
+def phase_scan_seq(sfu_rate):
+    """The sequential forward (#8) at the scan shapes in f32 and bf16, with
+    B and C column slices of x_dbl, plus a grouped-A (G = 2) case: y and
+    h_out against its plain loop and against the chunked kernel (#6) on the
+    same inputs, within SCAN_RTOL of their largest value; h_in against the
+    plain chunk-entry states; y without h_in equal to y with it; in f32 the
+    gradients through SelectiveScan(variant="sequential") against
+    variant="chunked" (the same backward kernel) within SEQ_GRAD_RTOL; and
+    reverse=True refused.  Timed by CUDA events queued behind a spin kernel
+    (tools/timing.py; the profiler's traces of this kernel dropped
+    launches), the chunked kernel and the plain loop (host-bound: ~8 small
+    launches a step) beside, against the bound (the chunked forward's
+    bytes)."""
+    import torch
+    from deepsense6g_tii_tpu_torch.ops import selective_scan as ss
+
+    gen = torch.Generator(device=DEVICE).manual_seed(4)
+    cases = [(dtype, L, d, 0) for dtype in (torch.float32, torch.bfloat16)
+             for L, d in SCAN_SHAPES]
+    cases += [(dtype, TOKENS, 256, 2)
+              for dtype in (torch.float32, torch.bfloat16)]
+    rows = []
+    for dtype, L, d, groups in cases:
+        dname = str(dtype).split(".")[1]
+        label = f"sequential scan {dname} L={L} d={d} G={groups}"
+        u, dt, A, B, C, dy = scan_inputs(gen, dtype, L, d, groups)
+        y, h, h_in = ss._launch_seq(u, dt, A, B, C, True)
+        y0, h0 = ss.selective_scan_fwd(u, dt, A, B, C, variant="sequential")
+        cy, ch = ss.selective_scan_fwd(u, dt, A, B, C)
+        torch.cuda.synchronize()
+        check(torch.equal(y, y0) and torch.equal(h, h0),
+              f"{label}: writing h_in changed y or h_out")
+        ry, rh, rh_in = ss.selective_scan_sequential_reference(u, dt, A, B, C)
+        ref_h_in = ss.chunk_states_reference(u, dt, A, B, C)
+        err = {"y_plain": (y, ry), "h_out_plain": (h, rh),
+               "y_chunked": (y, cy), "h_out_chunked": (h, ch),
+               "h_in": (h_in, ref_h_in), "h_in_loop": (h_in, rh_in)}
+        rel = {k: rel_gap(a, b) for k, (a, b) in err.items()}
+        check(all(v <= SCAN_RTOL for v in rel.values()),
+              f"{label}: max |err| over max |ref| {rel} (rtol {SCAN_RTOL})")
+        row = dict(dtype=dname, L=L, d=d, groups=groups, rel_err=rel,
+                   max_abs_err=(y - ry).abs().max().item())
+        if dtype == torch.float32:
+            row["grad_rel_err"] = seq_grad_gap(ss, u, dt, A, B, C, dy)
+            check(max(row["grad_rel_err"].values()) <= SEQ_GRAD_RTOL,
+                  f"{label}: gradients, sequential against chunked forward: "
+                  f"{row['grad_rel_err']} (rtol {SEQ_GRAD_RTOL})")
+        try:
+            ss.selective_scan_fwd(u, dt, A, B, C, reverse=True,
+                                  variant="sequential")
+            fail(f"{label}: reverse=True was not refused")
+        except ValueError:
+            pass
+        if not groups:
+            nbytes, flops, exps = scan_fwd_work(L, d, u.element_size())
+            t_bytes = nbytes / PEAK_BYTES
+            t_ops = flops / PEAK_FLOPS["float32"]
+            row.update(
+                ms=time_ms(lambda: ss.selective_scan_fwd(
+                    u, dt, A, B, C, variant="sequential")),
+                chunked_ms=time_ms(lambda: ss.selective_scan_fwd(
+                    u, dt, A, B, C)),
+                plain_ms=time_ms(lambda: ss.selective_scan_sequential_reference(
+                    u, dt, A, B, C), iters=2, warmup=1),
+                bytes=nbytes, flops=flops, bytes_ms=1e3 * t_bytes,
+                ops_ms=1e3 * t_ops, bound_ms=1e3 * max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                exps=exps, exp_sfu_ms=1e3 * exps / sfu_rate)
+        rows.append(row)
+        print("kernel selective_scan_seq " + json.dumps(row))
+        del u, dt, A, B, C, dy, y, h, h_in, ry, rh, rh_in, ref_h_in, cy, ch
+        torch.cuda.empty_cache()
+    return rows
+
+
+def seq_grad_gap(ss, u, dt, A, B, C, dy):
+    """Each gradient of y (for dy) through the sequential forward against
+    the chunked forward's, as max |gap| over max |chunked|."""
+    import torch
+    grads = {}
+    for variant in ("sequential", "chunked"):
+        leaves = [x.detach().requires_grad_() for x in (u, dt, A, B, C)]
+        y, _ = ss.selective_scan_fwd(*leaves, variant=variant)
+        grads[variant] = torch.autograd.grad(y, leaves, dy)
+    return {k: rel_gap(a, b) for k, a, b in zip(
+        SCAN_GRADS, grads["sequential"], grads["chunked"])}
+
+
+def rel_gap(a, b):
+    """max |a - b| over max |b| (max |a - b| where b is all 0)."""
+    err = (a.float() - b.float()).abs().max().item()
+    scale = b.float().abs().max().item()
+    return err / scale if scale else err
+
+
+def phase_chain(fmul_rate, sfu_rate):
+    """The calibration chain (#11) at both chain lengths, mul and exp, on
+    the tool's (4096, 8, 1024) f32 array: the mul chain equal to the plain
+    chain element for element, the exp chain within CHAIN_EXP_RTOL; each
+    length at least twice its bytes' time.  Timed by CUDA events queued
+    behind a spin kernel (tools/timing.py), with the plain chain beside the
+    bound: the larger of the bytes and the f32 operations (a
+    multiply, or a multiply and an exponential, a step) at the data sheet's
+    f32 rate.  Printed beside it: the same operations at the SM's FMUL
+    issue rate (half the data sheet's FMA-counting rate) and the
+    exponentials at the SFU rate, and the rates the two lengths imply."""
+    import torch
+    from deepsense6g_tii_tpu_torch.tools import scan_roofline as sr
+
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    x = 0.25 + 1.75 * torch.rand(sr.CHAIN_SHAPE, device=DEVICE, generator=gen)
+    n_el = x.numel()
+    rows, rates = [], {}
+    for use_exp, lengths in ((False, sr.MUL_K), (True, sr.EXP_K)):
+        what = "exp" if use_exp else "mul"
+        for k in lengths:
+            got = sr.chain(x, k, use_exp)
+            torch.cuda.synchronize()
+            ref = sr.chain_reference(x, k, use_exp)
+            if use_exp:
+                err = ((got - ref).abs() / ref.abs()).max().item()
+                check(err <= CHAIN_EXP_RTOL, f"chain exp k={k}: max relative "
+                      f"error {err:.3g} (rtol {CHAIN_EXP_RTOL})")
+            else:
+                err = (got - ref).abs().max().item()
+                check(torch.equal(got, ref), f"chain mul k={k}: not equal to "
+                      f"the plain chain (max |err| {err:.3g})")
+            ops = (2 if use_exp else 1) * k * n_el
+            t_bytes = sr.chain_bytes_ms(n_el)
+            t_ops = 1e3 * ops / PEAK_FLOPS["float32"]
+            row = dict(
+                op=what, k=k, max_abs_err=(got - ref).abs().max().item(),
+                rel_err=err if use_exp else 0.0,
+                ms=time_ms(lambda: sr.chain(x, k, use_exp)),
+                plain_ms=time_ms(lambda: sr.chain_reference(x, k, use_exp),
+                                 iters=2, warmup=1),
+                bytes_ms=t_bytes, ops_ms=t_ops, bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                fmul_issue_ms=1e3 * k * n_el / fmul_rate,
+                exp_sfu_ms=1e3 * k * n_el / sfu_rate if use_exp else None)
+            check(row["ms"] >= 2 * t_bytes, f"chain {what} k={k}: "
+                  f"{row['ms']:.4g} ms is less than twice its bytes' time "
+                  f"{t_bytes:.4g} ms: the calibration would be memory-bound")
+            rows.append(row)
+            print("kernel scan_roofline_chain " + json.dumps(row))
+            del got, ref
+        lo, hi = rows[-2], rows[-1]
+        rates[what] = (hi["k"] - lo["k"]) * n_el / (hi["ms"] - lo["ms"]) * 1e3
+    print("chain rates on the card: " + json.dumps(
+        {"mul_per_s": rates["mul"], "exp_per_s": rates["exp"],
+         "datasheet_fmul_per_s": fmul_rate, "datasheet_exp_per_s": sfu_rate,
+         "datasheet_f32_flops": PEAK_FLOPS["float32"],
+         "mul_share_of_fmul": rates["mul"] / fmul_rate,
+         "exp_share_of_sfu": rates["exp"] / sfu_rate}))
+    check(rates["mul"] <= 1.05 * fmul_rate, f"calibrated FMUL rate "
+          f"{rates['mul']:.4g}/s above 105% of {fmul_rate:.4g}/s")
+    del x
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_roofline(fmul_rate):
+    """A main path: the roofline tool's main (the chain calibration and
+    the scan forward, sequential forward and backward at B=16, L=962,
+    d=1024), which prints its JSON line; the counts at 0 just before, read
+    just after.  Returns its result and launches."""
+    import torch
+    from deepsense6g_tii_tpu_torch.ops import _build
+    from deepsense6g_tii_tpu_torch.ops import selective_scan as ss
+    from deepsense6g_tii_tpu_torch.tools import scan_roofline as sr
+
+    _build.reset_launch_counts()
+    out = sr.main([])
+    torch.cuda.synchronize()
+    counts = dict(_build.KERNEL_LAUNCHES)
+    print(f"roofline launches: {counts}")
+    check(all(counts.get(k, 0) > 0 for k in (
+        sr.KERNEL_CHAIN, ss.KERNEL, ss.KERNEL_SEQ, ss.KERNEL_BWD)),
+        f"roofline: a kernel of the path was not launched: {counts}")
+    cal = out["calibration"]
+    for what in ("mul", "exp"):
+        c = cal[what]
+        check(min(c["ms_lo"], c["ms_hi"]) >= 2 * c["bytes_ms"],
+              f"roofline {what} chain: {c['ms_lo']:.4g} / {c['ms_hi']:.4g} ms "
+              f"against a bytes bound of {c['bytes_ms']:.4g} ms")
+    check(cal["mul_Tops"] * 1e12 <= 1.05 * fmul_rate,
+          f"roofline: calibrated FMUL rate {cal['mul_Tops']:.4g} Tops above "
+          f"105% of {fmul_rate / 1e12:.4g}")
+    check(all(math.isfinite(out[k]["ms"]) and out[k]["ms"] > 0
+              for k in ("fwd", "bwd", "fwd_sequential")),
+          f"roofline: scan times {out}")
+    return out, counts
 
 
 def named_kernel_ms(fn, tags, iters=10, tries=3):
@@ -1078,13 +1317,16 @@ def bound_by(rows, key="bound_by"):
 
 
 def main():
-    card, sfu_rate = phase_device()
+    card, sfu_rate, fmul_rate = phase_device()
     phase_build()
     flash_rows = phase_flash_kernel()
     mask_row = phase_mask()
     bwd_rows = phase_flash_bwd()
     scan_rows = phase_scan_kernel(sfu_rate)
     scan_bwd_rows = phase_scan_bwd(sfu_rate)
+    seq_rows = phase_scan_seq(sfu_rate)
+    chain_rows = phase_chain(fmul_rate, sfu_rate)
+    _, roofline_launches = phase_roofline(fmul_rate)
 
     import torch
     from deepsense6g_tii_tpu_torch.ops import flash_attention as fa
@@ -1246,6 +1488,41 @@ def main():
                          >= per_forward(rows, n, "ops_ms")
                          else "operations"),
             "library_ms": None})
+    # #8 per serving forward, had the fusion stages and TimeMamba run the
+    # sequential variant (the shapes and launches of #6); #11 one launch at
+    # each chain length, mul and exp.  Their launches are the roofline
+    # tool's, the path that runs them.
+    seq_main = {(r["L"], r["d"]): r for r in seq_rows
+                if r["dtype"] == "bfloat16" and not r["groups"]}
+    kernels.append({
+        "name": ss.KERNEL_SEQ, "route": "cuda",
+        "source": "deepsense6g_tii_tpu_torch/csrc/selective_scan_seq.cu",
+        "replaces": "deepsense6g_tii_tpu/ops/selective_scan.py:268",
+        "launches": roofline_launches.get(ss.KERNEL_SEQ, 0),
+        "max_abs_err": max(r["max_abs_err"] for r in seq_rows),
+        **{k: per_forward(seq_main, SCAN_LAUNCHES, k)
+           for k in ("ms", "plain_ms", "bound_ms")},
+        "bound_by": ("bytes" if per_forward(seq_main, SCAN_LAUNCHES,
+                                            "bytes_ms")
+                     >= per_forward(seq_main, SCAN_LAUNCHES, "ops_ms")
+                     else "operations"),
+        "library_ms": None})
+    print("sequential scan per serving forward: " + json.dumps(
+        {k: per_forward(seq_main, SCAN_LAUNCHES, k)
+         for k in ("ms", "chunked_ms", "plain_ms", "bound_ms", "exp_sfu_ms")}))
+    from deepsense6g_tii_tpu_torch.tools import scan_roofline as sr
+    kernels.append({
+        "name": sr.KERNEL_CHAIN, "route": "cuda",
+        "source": "deepsense6g_tii_tpu_torch/csrc/scan_roofline_chain.cu",
+        "replaces": "tools/scan_roofline.py:82",
+        "launches": roofline_launches.get(sr.KERNEL_CHAIN, 0),
+        "max_abs_err": max(r["max_abs_err"] for r in chain_rows),
+        **{k: sum(r[k] for r in chain_rows)
+           for k in ("ms", "plain_ms", "bound_ms")},
+        "bound_by": ("bytes" if sum(r["bytes_ms"] for r in chain_rows)
+                     >= sum(r["ops_ms"] for r in chain_rows)
+                     else "operations"),
+        "library_ms": None})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,11 +1,11 @@
 """Selective scan (the Mamba recurrence), forward and backward: hand-written
 CUDA kernels for Hopper and their plain PyTorch versions.
 
-Counterpart of ``deepsense6g_tii_tpu/ops/selective_scan.py:58-87,206-265,
+Counterpart of ``deepsense6g_tii_tpu/ops/selective_scan.py:58-87,206-294,
 297-606,623-702`` (``selective_scan_ref``, ``_fwd_kernel_chunked``,
-``_fwd_kernel_chunked_rev``, ``_scan_fwd_pallas``, ``_bwd_kernel_chunked``,
-``_bwd_kernel_chunked_rev``, ``_scan_bwd_pallas``, ``selective_scan`` and
-its ``custom_vjp``).  Per batch row b, channel d and state n::
+``_fwd_kernel_chunked_rev``, ``_fwd_kernel_sequential``,
+``_scan_fwd_pallas``, ``_bwd_kernel_chunked``, ``_bwd_kernel_chunked_rev``,
+``_scan_bwd_pallas``, ``selective_scan`` and its ``custom_vjp``).  Per batch row b, channel d and state n::
 
     h_t = exp(dt_t * A[d,n]) * h_{t-1} + (dt_t * u_t) * B_t[n]    (h_{-1} = 0)
     y_t = sum_n h_t[d,n] * C_t[n]                                  (+ D*u: caller)
@@ -18,6 +18,9 @@ the batch.
 
 - ``csrc/selective_scan_fwd.cu`` computes y and the final state, and under
   autograd also the state entering each ``CHUNK``-step chunk (``h_in``).
+- ``csrc/selective_scan_seq.cu`` computes the same, left to right only,
+  step by step (``variant="sequential"``, the JAX package's cross-check of
+  the chunked forward); its ``h_in`` feeds the same backward kernel.
 - ``csrc/selective_scan_bwd.cu`` recomputes each chunk's states from
   ``h_in`` and runs the gradient recurrence against the scan, giving du,
   ddt and per-block partial sums of dA, dB and dC, which
@@ -43,10 +46,12 @@ from . import _build
 
 FWD_LIBRARY = "selective_scan_fwd"
 BWD_LIBRARY = "selective_scan_bwd"
-LIBRARIES = (FWD_LIBRARY, BWD_LIBRARY)
+SEQ_LIBRARY = "selective_scan_seq"
+LIBRARIES = (FWD_LIBRARY, BWD_LIBRARY, SEQ_LIBRARY)
 # launch counts, one name per kernel and direction
 KERNEL = "selective_scan_fwd"
 KERNEL_REV = "selective_scan_fwd_rev"
+KERNEL_SEQ = "selective_scan_seq"
 KERNEL_BWD = "selective_scan_bwd"
 KERNEL_BWD_REV = "selective_scan_bwd_rev"
 # the kernels' layout, as csrc/selective_scan.cuh states it: the states per
@@ -57,6 +62,7 @@ D_STATE = _LAYOUT["N"]
 CHUNK = _LAYOUT["TL"]
 CHANNELS_PER_BLOCK = _LAYOUT["DT"]
 _DTYPES = (torch.float32, torch.bfloat16)
+VARIANTS = ("chunked", "sequential")
 
 
 def num_chunks(L: int) -> int:
@@ -129,6 +135,30 @@ def chunk_states_reference(u, dt, A, B, C, reverse: bool = False):
     return h_in.transpose(2, 3).contiguous()
 
 
+def selective_scan_sequential_reference(u, dt, A, B, C):
+    """Plain version of the sequential kernel: a loop over the time steps
+    on (b, d, n) states in f32 (f64 for f64 input), as the JAX package's
+    ``_fwd_kernel_sequential`` walks them; independent of the doubling scan
+    of :func:`selective_scan_reference`.  Left to right only.
+
+    Returns (y (b, L, d), h_out (b, n, d), h_in (b, n_chunks, n, d)),
+    h_in being the state entering each ``CHUNK``-step chunk, as
+    :func:`chunk_states_reference` gives it."""
+    u, dt, A, B, C = _widen(u, dt, A, B, C)
+    if A.dim() == 4:
+        A = A[:, 0]                                    # (b, d, n)
+    h = u.new_zeros(u.shape[0], u.shape[2], A.shape[-1])
+    ys, h_in = [], []
+    for t in range(u.shape[1]):
+        if t % CHUNK == 0:
+            h_in.append(h)
+        h = (torch.exp(dt[:, t, :, None] * A) * h
+             + (dt[:, t] * u[:, t])[..., None] * B[:, t, None, :])
+        ys.append((h * C[:, t, None, :]).sum(-1))
+    return (torch.stack(ys, 1), h.transpose(1, 2).contiguous(),
+            torch.stack(h_in, 1).transpose(2, 3).contiguous())
+
+
 def selective_scan_bwd_reference(u, dt, A, B, C, dy, reverse: bool = False):
     """Plain backward: the gradients (du, ddt, dA, dB, dC) of the scan's y
     for an output gradient ``dy``, by the formulas of the backward kernel
@@ -174,6 +204,8 @@ _SIGNATURES = {
                            + [_INT] * 2 + [_PTR]),
     "selective_scan_bwd": (BWD_LIBRARY, [_PTR] * 12 + [_INT] * 5 + [_LL] * 2
                            + [_INT] * 2 + [_PTR]),
+    "selective_scan_seq": (SEQ_LIBRARY, [_PTR] * 8 + [_INT] * 5 + [_LL] * 2
+                           + [_INT] + [_PTR]),
 }
 
 
@@ -237,9 +269,9 @@ def _cuda(u):
                          f"{u.device}")
 
 
-def _launch_fwd(u, dt, A, B, C, reverse: bool, save_states: bool):
-    """The forward kernel: (y, h_out, h_in), h_in (b, n_chunks, n, d) f32
-    when ``save_states``, else None (and not written)."""
+def _fwd_outputs(u, dt, A, B, C, save_states: bool):
+    """The forward kernels' checks and outputs: y, h_out and, when
+    ``save_states``, h_in (else None), f32 on u's device."""
     _check_kernel_inputs(u, dt, A, B, C)
     _cuda(u)
     b, L, d = u.shape
@@ -247,13 +279,36 @@ def _launch_fwd(u, dt, A, B, C, reverse: bool, save_states: bool):
     h_out = torch.empty((b, D_STATE, d), dtype=torch.float32, device=u.device)
     h_in = (torch.empty((b, num_chunks(L), D_STATE, d), dtype=torch.float32,
                         device=u.device) if save_states else None)
-    groups = A.shape[0] if A.dim() == 3 else 1
-    _launch("selective_scan_fwd", KERNEL_REV if reverse else KERNEL,
-            u.device, u.data_ptr(), dt.data_ptr(), A.data_ptr(),
-            B.data_ptr(), C.data_ptr(), y.data_ptr(), h_out.data_ptr(),
+    return y, h_out, h_in
+
+
+def _fwd_args(u, dt, A, B, C, y, h_out, h_in):
+    """The arguments the forward kernels share, in their C order up to
+    is_bf16."""
+    b, L, d = u.shape
+    return (u.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+            C.data_ptr(), y.data_ptr(), h_out.data_ptr(),
             None if h_in is None else h_in.data_ptr(), b, L, d, D_STATE,
-            groups, B.stride(0), B.stride(1),
-            int(u.dtype == torch.bfloat16), int(reverse))
+            A.shape[0] if A.dim() == 3 else 1, B.stride(0), B.stride(1),
+            int(u.dtype == torch.bfloat16))
+
+
+def _launch_fwd(u, dt, A, B, C, reverse: bool, save_states: bool):
+    """The forward kernel: (y, h_out, h_in), h_in (b, n_chunks, n, d) f32
+    when ``save_states``, else None (and not written)."""
+    y, h_out, h_in = _fwd_outputs(u, dt, A, B, C, save_states)
+    _launch("selective_scan_fwd", KERNEL_REV if reverse else KERNEL,
+            u.device, *_fwd_args(u, dt, A, B, C, y, h_out, h_in),
+            int(reverse))
+    return y, h_out, h_in
+
+
+def _launch_seq(u, dt, A, B, C, save_states: bool):
+    """The sequential forward kernel: (y, h_out, h_in) as
+    :func:`_launch_fwd` gives them, left to right."""
+    y, h_out, h_in = _fwd_outputs(u, dt, A, B, C, save_states)
+    _launch("selective_scan_seq", KERNEL_SEQ, u.device,
+            *_fwd_args(u, dt, A, B, C, y, h_out, h_in))
     return y, h_out, h_in
 
 
@@ -289,13 +344,18 @@ def selective_scan_bwd(u, dt, A, B, C, dy, h_in, *, reverse: bool = False):
 
 
 class SelectiveScan(torch.autograd.Function):
-    """The scan with its backward: the forward kernel also writes the
+    """The scan with its backward: the forward kernel (the chunked one, or
+    the sequential one for ``variant="sequential"``) also writes the
     chunk-entry states, which the backward kernel reads with u, dt, A, B
-    and C.  Returns (y, h_out); h_out takes no gradient."""
+    and C; the backward is the chunked kernel for either variant, as in the
+    JAX package.  Returns (y, h_out); h_out takes no gradient."""
 
     @staticmethod
-    def forward(ctx, u, dt, A, B, C, reverse):
-        y, h_out, h_in = _launch_fwd(u, dt, A, B, C, reverse, True)
+    def forward(ctx, u, dt, A, B, C, reverse, variant="chunked"):
+        if variant == "sequential":
+            y, h_out, h_in = _launch_seq(u, dt, A, B, C, True)
+        else:
+            y, h_out, h_in = _launch_fwd(u, dt, A, B, C, reverse, True)
         ctx.save_for_backward(u, dt, A, B, C, h_in)
         ctx.reverse = reverse
         ctx.mark_non_differentiable(h_out)
@@ -306,7 +366,9 @@ class SelectiveScan(torch.autograd.Function):
         u, dt, A, B, C, h_in = ctx.saved_tensors
         grads = selective_scan_bwd(u, dt, A, B, C, dy.contiguous(), h_in,
                                    reverse=ctx.reverse)
-        return (*grads, None)
+        # None for reverse and variant (torch drops a trailing None that has
+        # no input)
+        return (*grads, None, None)
 
 
 def needs_grad(*tensors) -> bool:
@@ -314,13 +376,26 @@ def needs_grad(*tensors) -> bool:
     return torch.is_grad_enabled() and any(x.requires_grad for x in tensors)
 
 
-def selective_scan_fwd(u, dt, A, B, C, *, reverse: bool = False):
+def selective_scan_fwd(u, dt, A, B, C, *, reverse: bool = False,
+                       variant: str = "chunked"):
     """y (b, L, d) f32 and the final state h_out (b, n, d) f32 of the
     selective scan; see the module docstring for the contract.
-    Differentiable in u, dt, A, B and C on either device."""
+    ``variant="sequential"`` runs the step-by-step kernel (the plain loop
+    :func:`selective_scan_sequential_reference` on the CPU), left to right
+    only: with ``reverse=True`` it raises ``ValueError``, as the JAX
+    package does.  Differentiable in u, dt, A, B and C on either device."""
+    if variant not in VARIANTS:
+        raise ValueError(f"selective scan variant must be one of {VARIANTS}, "
+                         f"got {variant!r}")
+    if reverse and variant != "chunked":
+        raise ValueError("reverse scan supports only variant='chunked'")
     if u.device.type == "cpu":
+        if variant == "sequential":
+            return selective_scan_sequential_reference(u, dt, A, B, C)[:2]
         return selective_scan_reference(u, dt, A, B, C, reverse)
     if needs_grad(u, dt, A, B, C):
-        return SelectiveScan.apply(u, dt, A, B, C, bool(reverse))
+        return SelectiveScan.apply(u, dt, A, B, C, bool(reverse), variant)
+    if variant == "sequential":
+        return _launch_seq(u, dt, A, B, C, False)[:2]
     y, h_out, _ = _launch_fwd(u, dt, A, B, C, reverse, False)
     return y, h_out

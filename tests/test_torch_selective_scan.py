@@ -27,6 +27,7 @@ from deepsense6g_tii_tpu.ops import selective_scan as jax_ss
 from deepsense6g_tii_tpu_torch.ops import _build
 from deepsense6g_tii_tpu_torch.ops import flash_attention as fa
 from deepsense6g_tii_tpu_torch.ops import selective_scan as ss
+from deepsense6g_tii_tpu_torch.tools import scan_roofline
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -424,7 +425,8 @@ class TestWrapper:
 _C_TYPES = {"void*": ctypes.c_void_p, "int": ctypes.c_int,
             "long long": ctypes.c_longlong, "float": ctypes.c_float,
             "uint32_t": ctypes.c_uint32}
-_ENTRY_POINTS = [(m, f) for m in (ss, fa) for f in m._SIGNATURES]
+_ENTRY_POINTS = [(m, f) for m in (ss, fa, scan_roofline)
+                 for f in m._SIGNATURES]
 
 
 @pytest.mark.parametrize("module,fname", _ENTRY_POINTS,

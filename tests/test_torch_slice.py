@@ -191,7 +191,11 @@ def test_package_imports_with_jax_blocked():
             "deepsense6g_tii_tpu_torch.train.metrics",
             "deepsense6g_tii_tpu_torch.train.scheduler",
             "deepsense6g_tii_tpu_torch.train.state",
-            "deepsense6g_tii_tpu_torch.train.steps"} <= set(modules)
+            "deepsense6g_tii_tpu_torch.train.steps",
+            "deepsense6g_tii_tpu_torch.tools.timing",
+            "deepsense6g_tii_tpu_torch.tools.scan_roofline",
+            "deepsense6g_tii_tpu_torch.tools.bench_scan",
+            "deepsense6g_tii_tpu_torch.tools.bench_flash"} <= set(modules)
     code = ("import sys, importlib\n"
             "for m in ('jax', 'jaxlib', 'flax', 'deepsense6g_tii_tpu'):\n"
             "    sys.modules[m] = None\n"
