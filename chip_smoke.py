@@ -2,13 +2,17 @@
 """Smoke run of the PyTorch port (deepsense6g_tii_tpu_torch) on one NVIDIA
 GPU: the quickest proof that the port builds, is right, serves and trains.
 
-    python3 chip_smoke.py          # from the root of a checkout
+    python3 chip_smoke.py                  # from the root of a checkout
+    python3 chip_smoke.py --parent PATH    # also times PATH's flash kernels
 
 Phases, in order; any failure exits non-zero and prints no result:
 
 1. device   CUDA must be present; prints the card's name and power limit.
 2. build    compiles every CUDA kernel of the port from csrc/ with nvcc
-            (one process per source, all started together).
+            (one process per source, all started together), prints ptxas's
+            registers and spills, and checks the SASS (cuobjdump -sass):
+            every head-dim instantiation of the bf16 flash forward and
+            merged backward holds tensor-core instructions (HMMA/HGMMA).
 3. kernels  holds each kernel against its plain PyTorch version at the
             shapes of the serving and training paths, in f32 and bf16, and
             times the kernel, the plain version and the one PyTorch call
@@ -20,6 +24,8 @@ Phases, in order; any failure exits non-zero and prints no result:
               plain stream for four seeds;
             - flash backward, merged and split, dropout 0 and 0.1, against
               the plain backward and against each other;
+            - the bf16 flash forward and merged backward at batch 1 (T =
+              962) and at T = 70 and 1, every head dim;
             - the selective scan forward in both directions;
             - the selective scan backward in both directions, on the
               forward kernel's chunk-entry states (held against the plain
@@ -73,8 +79,11 @@ Phases, in order; any failure exits non-zero and prints no result:
             forwards and the backward, and its calibrated FMUL rate must not
             exceed 105% of SMs x 128 lanes x the SM clock.
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is {"ok": true, "device": {...}}.  TF32 is switched off for
+With --parent PATH, after the last phase, the flash forward and merged
+backward of the checkout at PATH are timed against this one's, per GPT
+training step, in turns on this card (their numbers join the kernels
+line's rows 1 and 2).  The line before the last is a JSON object with one
+entry per kernel; the last line is {"ok": true, "device": {...}}.  TF32 is switched off for
 matmuls and convolutions, so the f32 comparisons are exact f32 on both
 sides; the bf16 serving path is unaffected by it.
 """
@@ -213,8 +222,12 @@ def device_ms(fn, iters=20, warmup=3, tries=3):
     :func:`time_ms`, it excludes the gaps while the host enqueues.  Every
     kernel name must occur a multiple of ``iters`` times in the trace; a
     trace where one does not (the profiler on the card's machine now and
-    then drops device events) is taken again, up to ``tries`` times."""
-    from collections import Counter
+    then drops device events, at times in every trace of a run) is taken
+    again, up to ``tries`` times.  If the last trace still lacks events, a
+    call's time is each kernel's mean time times its launches a call
+    (its count over ``iters``, rounded), provided that the events missing
+    are at most 5% of those expected; the line printed says so."""
+    from collections import Counter, defaultdict
     for _ in range(warmup):
         fn()
 
@@ -227,8 +240,20 @@ def device_ms(fn, iters=20, warmup=3, tries=3):
         counts = Counter(e.name for e in kernels)
         if all(n % iters == 0 for n in counts.values()):
             return sum(e.time_range.elapsed_us() for e in kernels) / iters / 1e3
-    fail(f"{tries} traces of {iters} calls dropped device events: "
-         f"{dict(counts)}")
+    per_call = {name: round(n / iters) for name, n in counts.items()}
+    missing = sum(abs(per_call[name] * iters - n)
+                  for name, n in counts.items())
+    expected = iters * sum(per_call.values())
+    check(min(per_call.values()) > 0 and missing <= 0.05 * expected,
+          f"{tries} traces of {iters} calls dropped device events: "
+          f"{dict(counts)}")
+    us = defaultdict(float)
+    for e in kernels:
+        us[e.name] += e.time_range.elapsed_us()
+    print(f"device_ms: {tries} traces dropped device events; the last "
+          f"lacks {missing} of {expected}, timed by each kernel's mean")
+    return sum(us[name] / counts[name] * per_call[name]
+               for name in counts) / 1e3
 
 
 def phase_device():
@@ -270,6 +295,42 @@ def phase_build():
     for name in kernels:
         _build.load(name)
     chain_sass(_build.library_path(scan_roofline.LIBRARY))
+    flash_sass({lib: _build.library_path(lib)
+                for lib in (flash_attention.KERNEL,
+                            flash_attention.BWD_LIBRARY)})
+
+
+def sass_functions(library):
+    """{mangled name: SASS text} of every kernel in ``library``
+    (cuobjdump -sass)."""
+    import re
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(library)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    return {fn.split("\n")[0].strip(): fn
+            for fn in re.split(r"\n\s*Function : ", sass)[1:]}
+
+
+def flash_sass(libraries):
+    """The bf16 flash forward and merged backward run on the tensor
+    cores: each head-dim instantiation of flash_fwd_mma_kernel and
+    flash_bwd_mma_kernel holds HMMA (mma.sync) or HGMMA (wgmma)
+    instructions."""
+    import re
+    found = {}
+    for lib, path in libraries.items():
+        for name, text in sass_functions(path).items():
+            m = re.search(r"flash_(fwd|bwd)_mma_kernelILi(\d+)E", name)
+            if m:
+                found[f"{m.group(1)} d={m.group(2)}"] = (
+                    len(re.findall(r"\bHMMA\b", text)),
+                    len(re.findall(r"\bHGMMA\b", text)))
+    print(f"flash bf16 SASS (HMMA, HGMMA) a kernel: {found}")
+    want = {f"{kind} d={d}" for kind in ("fwd", "bwd") for d in HEAD_DIMS}
+    check(set(found) == want and all(sum(c) > 0 for c in found.values()),
+          f"flash SASS: expected HMMA or HGMMA in each of {sorted(want)}, "
+          f"got {found}")
 
 
 def chain_sass(library):
@@ -278,13 +339,9 @@ def chain_sass(library):
     a thread, U steps a body, k / U trips), so that the calibration counts
     what the card issues."""
     import re
-    import shutil
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    sass = subprocess.run([tool, "-sass", str(library)], capture_output=True,
-                          text=True, timeout=300, check=True).stdout
     found = {}
-    for fn in re.split(r"\n\s*Function : ", sass)[1:]:
-        m = re.search(r"chain_kernelILi(\d+)ELb([01])E", fn.split("\n")[0])
+    for name, fn in sass_functions(library).items():
+        m = re.search(r"chain_kernelILi(\d+)ELb([01])E", name)
         if m:
             found[(int(m.group(1)), m.group(2) == "1")] = (
                 len(re.findall(r"\bFMUL\b", fn)),
@@ -299,7 +356,7 @@ def chain_sass(library):
         f"{found}")
 
 
-def phase_flash_kernel():
+def phase_flash_kernel(sfu_rate):
     import torch
     import torch.nn.functional as F
     from deepsense6g_tii_tpu_torch.ops import flash_attention as fa
@@ -354,10 +411,18 @@ def phase_flash_kernel():
                                                                scale=sm)),
                     bound_ms=bound_ms, bound_us=1e3 * bound_ms,
                     bound_by="operations" if flops / PEAK_FLOPS[dname]
-                    >= nbytes / PEAK_BYTES else "bytes")
+                    >= nbytes / PEAK_BYTES else "bytes",
+                    exp_sfu_ms=exp_sfu_ms(bh, TOKENS, sfu_rate))
                 rows.append(row)
                 print("kernel flash_attention_fwd " + json.dumps(row))
     return rows
+
+
+def exp_sfu_ms(bh, t, sfu_rate):
+    """One exponential per attention element, bh·T² a launch, at the
+    special-function units' rate alone: not in the bound, printed beside
+    it (as for the scan kernels)."""
+    return 1e3 * bh * t * t / sfu_rate
 
 
 def bf16_ulp(x):
@@ -399,7 +464,7 @@ def phase_mask():
     return row
 
 
-def phase_flash_bwd():
+def phase_flash_bwd(sfu_rate):
     """Merged and split backward against the plain backward and each other,
     at the training path's shapes, dropout 0 and 0.1; timed with the plain
     version and SDPA's backward (dropout 0) beside the bound."""
@@ -472,7 +537,8 @@ def phase_flash_bwd():
                     split_flops_ms=1e3 * 1.4 * flops / PEAK_FLOPS[dname],
                     dq_bound_ms=bounds["dq"][0], dq_bound_by=bounds["dq"][1],
                     dkv_bound_ms=bounds["dkv"][0],
-                    dkv_bound_by=bounds["dkv"][1])
+                    dkv_bound_by=bounds["dkv"][1],
+                    exp_sfu_ms=exp_sfu_ms(bh, TOKENS, sfu_rate))
                 row.update(split_kernel_ms(fa, q, k, v, o, lse, do, kw))
                 if not p:
                     row["library_ms"] = sdpa_backward_ms(F, q, k, v, do, sm)
@@ -481,6 +547,79 @@ def phase_flash_bwd():
             del q, k, v, do, o, lse, got, ref
             torch.cuda.empty_cache()
     return rows
+
+
+def phase_flash_shapes():
+    """The bf16 forward and merged backward at the other shapes of the
+    path and at the ragged edges of their tiles: batch 1 at T = 962 (a
+    serving request of one sample, BH = 4: 16 q tiles, 64 blocks), and T =
+    70 and 1 (one full and one 6-row tile; a single key), each head dim,
+    dropout 0 and 0.1.  Held as phase_flash_kernel and phase_flash_bwd hold
+    them (merged and split against the plain backward and each other), with
+    one floor added to the backward's bound: at T = 1, dq and dk are exactly
+    0 without dropout (a softmax over one key), and both sides then return
+    the f32 rounding of dP - dvec, two D-term dot products of terms up to
+    max |dO|·max |c v|, each taken as rounded by D·2^-24 of that (a sum of
+    D terms rounds by about sqrt(D)·2^-24 of its terms' size), times scale
+    and max |q|, |k|.  Returns the batch-1 forward's ms per launch by head
+    dim (dropout 0)."""
+    import torch
+    from deepsense6g_tii_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    batch1 = {}
+    for b, t in ((1, TOKENS), (2, 70), (2, 1)):
+        for d in HEAD_DIMS:
+            q, k, v, do = (torch.randn(b, HEADS, t, d, device=DEVICE,
+                                       generator=gen).to(torch.bfloat16)
+                           for _ in range(4))
+            sm = d ** -0.5
+            for p in (0.0, DROP_P):
+                seed = 77 if p else None
+                kw = dict(sm_scale=sm, dropout_p=p, seed=seed)
+                o, lse = fa.flash_mha_fwd(q, k, v, **kw)
+                got = {mode: fa.flash_mha_bwd(q, k, v, o, lse, do, mode=mode,
+                                              **kw)
+                       for mode in ("merged", "split")}
+                torch.cuda.synchronize()
+                ro, rlse = fa.flash_mha_reference(q, k, v, sm, p, seed or 0)
+                err_o = (o.float() - ro.float()).abs().max().item()
+                err_l = (lse - rlse).abs().max().item()
+                tol_o = max(TOL["bfloat16"][0],
+                            2 * bf16_ulp(ro.float().abs().max()))
+                check(err_o <= tol_o and err_l <= TOL["bfloat16"][1],
+                      f"flash kernel bf16 B={b} T={t} d={d} p={p}: max |O "
+                      f"err| {err_o:.3g} (tol {tol_o:.3g}), max |lse err| "
+                      f"{err_l:.3g}")
+                ref = fa.flash_mha_bwd_reference(q, k, v, o, lse, do, sm, p,
+                                                 seed or 0)
+                amax = lambda x: x.float().abs().max().item()  # noqa: E731
+                c = 1.0 / (1.0 - p)
+                floor = (2 * d * 2.0 ** -24 * amax(do) * amax(v) * c * sm
+                         * max(amax(q), amax(k)))
+                scale = [amax(r) for r in ref]
+                err = {mode: [amax(g.float() - r.float())
+                              for g, r in zip(got[mode], ref)]
+                       for mode in got}
+                err["merged_vs_split"] = [
+                    amax(a.float() - b_.float())
+                    for a, b_ in zip(got["merged"], got["split"])]
+                for what, errs in err.items():
+                    check(all(e <= BWD_RTOL["bfloat16"] * s_ + floor
+                              for e, s_ in zip(errs, scale)),
+                          f"flash backward bf16 B={b} T={t} d={d} p={p} "
+                          f"{what}: max |d(q,k,v) err| {errs} of max |plain| "
+                          f"{scale} (rtol {BWD_RTOL['bfloat16']}, floor "
+                          f"{floor:.3g})")
+                print(f"flash bf16 B={b} T={t} d={d} p={p}: O err {err_o:.3g},"
+                      f" lse err {err_l:.3g}, d(q,k,v) err {err}")
+                if b == 1 and not p:
+                    batch1[d] = time_ms(lambda: fa.flash_mha_fwd(q, k, v,
+                                                                 **kw))
+    print("flash forward at batch 1 (BH = 4, T = 962, bf16, dropout 0), ms "
+          "a launch: " + json.dumps(batch1) + f"; per serving forward "
+          f"(8 at each head dim): {N_LAYER * sum(batch1.values())}")
+    return batch1
 
 
 def split_kernel_ms(fa, q, k, v, o, lse, do, kw):
@@ -882,7 +1021,9 @@ def named_kernel_ms(fn, tags, iters=10, tries=3):
     of ``tags``, from a trace of ``iters`` calls; each must launch once a
     call.  A trace that holds fewer of them (the profiler on the card's
     machine now and then drops device events) is taken again, up to
-    ``tries`` times."""
+    ``tries`` times; if the last still lacks some, each kernel's mean time
+    over the launches it holds is taken, provided that it holds at least
+    90% of them."""
     import torch
     fn()
     for _ in range(tries):
@@ -892,8 +1033,13 @@ def named_kernel_ms(fn, tags, iters=10, tries=3):
                  for tag in tags]
         if all(len(t) == iters for t in times):
             return [sum(t) / iters / 1e3 for t in times]
-    fail(f"{tries} traces hold {[len(t) for t in times]} launches of "
-         f"{tags}, expected {iters} each")
+    check(all(0.9 * iters <= len(t) <= iters for t in times),
+          f"{tries} traces hold {[len(t) for t in times]} launches of "
+          f"{tags}, expected {iters} each")
+    print(f"named_kernel_ms: {tries} traces dropped launches of {tags}; the "
+          f"last holds {[len(t) for t in times]} of {iters}, timed by the "
+          f"mean")
+    return [sum(t) / len(t) / 1e3 for t in times]
 
 
 def phase_slice(card, name, cfg, expect, f32_runs, f32_checks):
@@ -1316,12 +1462,45 @@ def bound_by(rows, key="bound_by"):
             else "bytes")
 
 
-def main():
+def phase_flash_parent(root):
+    """With ``--parent PATH``: the flash forward and merged backward of the
+    checkout at PATH (e.g. a ``git archive`` of the parent commit) against
+    this checkout's, per GPT training step (tools/bench_flash.per_step: B=8,
+    bf16, 8 launches at each head dim, dropout 0 and 0.1), timed on this
+    card in the order parent, change, change, parent.  Returns each side's
+    mean of its two runs, or None without a parent."""
+    if not root:
+        return None
+    from deepsense6g_tii_tpu_torch.tools import bench_flash
+    check(os.path.isdir(os.path.join(root, "deepsense6g_tii_tpu_torch")),
+          f"--parent {root}: no deepsense6g_tii_tpu_torch there")
+    runs = {"parent": [], "change": []}
+    for who in ("parent", "change", "change", "parent"):
+        runs[who].append(bench_flash.per_step(
+            DEVICE, bench_flash.load_flash(root if who == "parent" else None)))
+    out = {who: {key: {m: (r[0][key][m] + r[1][key][m]) / 2
+                       for m in ("fwd_ms", "bwd_ms")} for key in r[0]}
+           for who, r in runs.items()}
+    out["runs"] = runs
+    print("flash per GPT training step, parent vs change (B=8, bf16; "
+          "parent, change, change, parent): " + json.dumps(
+              {who: out[who] for who in ("parent", "change")}))
+    return out
+
+
+def main(argv=None):
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", default=None, metavar="PATH",
+                    help="a checkout whose flash kernels to time against "
+                         "this one's (e.g. a git archive of the parent)")
+    args = ap.parse_args(argv)
     card, sfu_rate, fmul_rate = phase_device()
     phase_build()
-    flash_rows = phase_flash_kernel()
+    flash_rows = phase_flash_kernel(sfu_rate)
     mask_row = phase_mask()
-    bwd_rows = phase_flash_bwd()
+    bwd_rows = phase_flash_bwd(sfu_rate)
+    batch1 = phase_flash_shapes()
     scan_rows = phase_scan_kernel(sfu_rate)
     scan_bwd_rows = phase_scan_bwd(sfu_rate)
     seq_rows = phase_scan_seq(sfu_rate)
@@ -1384,7 +1563,9 @@ def main():
     print("flash forward per serving forward (dropout 0): " + json.dumps(
         {"launches": gpt[fa.KERNEL],
          **{k: summed(serve_fwd, k)
-            for k in ("ms", "plain_ms", "bound_ms", "library_ms")}}))
+            for k in ("ms", "plain_ms", "bound_ms", "library_ms",
+                      "exp_sfu_ms")},
+         "batch1_ms": N_LAYER * sum(batch1.values())}))
     # The scan kernels at batch 8 in bf16: per serving forward or training
     # step, 16 launches at each stage's d_inner (L = 962) and 3 in the
     # TimeMamba head (L = 5) with reverse_scan_kernel off, the forward (#6)
@@ -1434,38 +1615,66 @@ def main():
         {"merged_ms": summed(bwd, "ms"), "split_ms": summed(bwd, "split_ms"),
          "plain_ms": summed(bwd, "plain_ms"), "sdpa_bwd_ms": sdpa_bwd,
          "bound_ms": summed(bwd, "bound_ms"),
-         "split_flops_ms": summed(bwd, "split_flops_ms")}))
+         "split_flops_ms": summed(bwd, "split_flops_ms"),
+         "exp_sfu_ms": summed(bwd, "exp_sfu_ms")}))
+    # after every traced phase: the parent's kernels load beside this
+    # checkout's
+    parent = phase_flash_parent(args.parent)
+    # per training step at dropout 0 too: the kernels against SDPA
+    fwd0, bwd0 = ([r for r in rows if r["dtype"] == "bfloat16"
+                   and r["p"] == 0.0] for rows in (flash_rows, bwd_rows))
+    print("flash per training step, dropout 0: " + json.dumps(
+        {"fwd_ms": summed(fwd0, "ms"), "sdpa_ms": summed(fwd0, "library_ms"),
+         "merged_ms": summed(bwd0, "ms"), "sdpa_bwd_ms": sdpa_bwd,
+         "fwd_bound_ms": summed(fwd0, "bound_ms"),
+         "bwd_bound_ms": summed(bwd0, "bound_ms"),
+         "exp_sfu_ms": summed(fwd0, "exp_sfu_ms")}))
 
-    def entry(name, source, replaces, ms, bound, by, plain, library, err):
+    def entry(name, source, replaces, ms, bound, by, plain, library, err,
+              **extra):
         return {"name": name, "route": "cuda",
                 "source": f"deepsense6g_tii_tpu_torch/csrc/{source}",
                 "replaces": f"deepsense6g_tii_tpu/ops/{replaces}",
                 "launches": steps.get(name, 0),
                 "max_abs_err": err, "ms": ms, "plain_ms": plain,
-                "bound_ms": bound, "bound_by": by, "library_ms": library}
+                "bound_ms": bound, "bound_by": by, "library_ms": library,
+                **extra}
+
+    def vs_parent(m):
+        """The kernel's per-step ms, parent and change, from --parent."""
+        if parent is None:
+            return {"parent_ms": None, "vs_parent": None}
+        return {"parent_ms": parent["parent"][f"p={DROP_P}"][m],
+                "vs_parent": {key: {"parent_ms": parent["parent"][key][m],
+                                    "ms": parent["change"][key][m]}
+                              for key in parent["change"]}}
 
     kernels = [
         entry(fa.KERNEL, "flash_attention_fwd.cu", "flash_attention.py:160",
               summed(fwd, "ms"), summed(fwd, "bound_ms"), bound_by(fwd),
               summed(fwd, "plain_ms"), summed(fwd, "library_ms"),
-              max(r["max_abs_err"] for r in fwd)),
+              max(r["max_abs_err"] for r in fwd),
+              exp_sfu_ms=summed(fwd, "exp_sfu_ms"), **vs_parent("fwd_ms")),
         entry(fa.KERNEL_MASK, "flash_dropout_mask.cu",
               "flash_attention.py:615", mask_row["ms"],
               mask_row["bound_ms"], "bytes", mask_row["plain_ms"], None, 0.0),
         entry(fa.KERNEL_MERGED, "flash_attention_bwd.cu",
               "flash_attention.py:344", summed(bwd, "ms"),
               summed(bwd, "bound_ms"), bound_by(bwd), summed(bwd, "plain_ms"),
-              sdpa_bwd, max(r["max_abs_err"] for r in bwd)),
+              sdpa_bwd, max(r["max_abs_err"] for r in bwd),
+              exp_sfu_ms=summed(bwd, "exp_sfu_ms"), **vs_parent("bwd_ms")),
         entry(fa.KERNEL_DQ, "flash_attention_bwd.cu",
               "flash_attention.py:265", summed(bwd, "dq_ms"),
               summed(bwd, "dq_bound_ms"), bound_by(bwd, "dq_bound_by"),
               summed(bwd, "plain_ms"), None,
-              max(r["err"]["split"][0] for r in bwd)),
+              max(r["err"]["split"][0] for r in bwd),
+              exp_sfu_ms=summed(bwd, "exp_sfu_ms")),
         entry(fa.KERNEL_DKV, "flash_attention_bwd.cu",
               "flash_attention.py:297", summed(bwd, "dkv_ms"),
               summed(bwd, "dkv_bound_ms"), bound_by(bwd, "dkv_bound_by"),
               summed(bwd, "plain_ms"), None,
-              max(max(r["err"]["split"][1:]) for r in bwd)),
+              max(max(r["err"]["split"][1:]) for r in bwd),
+              exp_sfu_ms=summed(bwd, "exp_sfu_ms")),
     ]
     msteps = mtrain["launches_per_step"]
     for name, line, rows, n in (

@@ -32,14 +32,15 @@ dropout_mask_kernel(float* __restrict__ out, int t, DropoutStream drop) {
 
 }  // namespace
 
-// out: (n_bh, t, t) f32 contiguous.  Launches on `stream` without
+// out: (n_bh, t, t) f32 contiguous; keep_min = ceil(p * 2^24) for the f32
+// p (flash_dropout.cuh).  Launches on `stream` without
 // synchronising and returns cudaGetLastError() of the launch.
-extern "C" int flash_dropout_mask(void* out, int n_bh, int t, float p,
-                                  float scale, uint32_t seed, int t_pad,
-                                  void* stream) {
+extern "C" int flash_dropout_mask(void* out, int n_bh, int t,
+                                  uint32_t keep_min, float scale,
+                                  uint32_t seed, int t_pad, void* stream) {
   if (n_bh <= 0 || n_bh > 65535 || t <= 0 || t_pad < t)
     return (int)cudaErrorInvalidValue;
-  const DropoutStream drop{p, scale, seed, (uint32_t)t_pad};
+  const DropoutStream drop{keep_min, scale, seed, (uint32_t)t_pad};
   dropout_mask_kernel<<<dim3(t, n_bh), NT, 0,
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<float*>(out), t, drop);

@@ -12,6 +12,11 @@ Counterpart of ``deepsense6g_tii_tpu/ops/flash_attention.py:71-651``
 - ``csrc/flash_attention_bwd.cu`` recomputes P = exp(s·scale − lse) tile by
   tile and forms dq, dk and dv: in one pass (``merged``, the TPU's
   ``_merged_bwd_kernel``) or as the ``dq`` + ``dkv`` pair (``split``).
+
+In bf16, the dtype the card serves and trains in, the forward and the
+merged backward run their products on the tensor cores
+(mma.sync.m16n8k16, bf16 operands, f32 sums; ``csrc/flash_mma.cuh``); in
+f32, and for the split pair, the products run on the CUDA cores in f32.
 - ``csrc/flash_dropout_mask.cu`` exports the dropout scale that the other
   kernels draw, the oracle for their stream.
 
@@ -34,6 +39,7 @@ CUDA call does (ops/_build.py).
 from __future__ import annotations
 
 import ctypes
+import math
 import os
 
 import numpy as np
@@ -76,6 +82,15 @@ def uniform_hash(ids: torch.Tensor, seed: int) -> torch.Tensor:
     x.mul_(0xC2B2AE35).bitwise_and_(_U32)
     x.bitwise_xor_(x >> 16)
     return (x >> 8).to(torch.float32) * 2.0 ** -24
+
+
+def keep_threshold(dropout_p: float) -> int:
+    """ceil(p·2^24) for p as an f32: the kernels keep an element when its
+    24-bit draw n is ≥ this, the exact integer form of
+    ``n·2^-24 ≥ float32(p)`` (the compare of :func:`uniform_hash`'s
+    uniforms), and 0 (keep all) for p = 0.  Below 2^24 for every p that
+    :func:`flash_mha` takes (float32(p) < 1)."""
+    return math.ceil(float(np.float32(dropout_p)) * 2.0 ** 24)
 
 
 def padded_length(t: int, block: int = DEFAULT_BLOCK) -> int:
@@ -181,15 +196,16 @@ def flash_mha_bwd_reference(q, k, v, o, lse, do, sm_scale,
 
 _PTR, _INT, _F32, _U32T = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                            ctypes.c_uint32)
-_DROP_ARGS = [_F32] * 4 + [_U32T, _INT, _PTR]
+# sm_scale, keep_min, drop scale, c_in, seed, t_pad, stream
+_DROP_ARGS = [_F32, _U32T, _F32, _F32, _U32T, _INT, _PTR]
 _SIGNATURES = {
-    "flash_attention_fwd": (KERNEL, [_PTR] * 5 + [_INT] * 4 + [_F32] * 3
-                            + [_U32T, _INT, _PTR]),
-    "flash_bwd_merged": (BWD_LIBRARY, [_PTR] * 10 + [_INT] * 4 + _DROP_ARGS),
+    "flash_attention_fwd": (KERNEL, [_PTR] * 5 + [_INT] * 4
+                            + [_F32, _U32T, _F32, _U32T, _INT, _PTR]),
+    "flash_bwd_merged": (BWD_LIBRARY, [_PTR] * 11 + [_INT] * 4 + _DROP_ARGS),
     "flash_bwd_dq": (BWD_LIBRARY, [_PTR] * 7 + [_INT] * 4 + _DROP_ARGS),
     "flash_bwd_dkv": (BWD_LIBRARY, [_PTR] * 8 + [_INT] * 4 + _DROP_ARGS),
-    "flash_dropout_mask": (KERNEL_MASK, [_PTR, _INT, _INT, _F32, _F32, _U32T,
-                                         _INT, _PTR]),
+    "flash_dropout_mask": (KERNEL_MASK, [_PTR, _INT, _INT, _U32T, _F32,
+                                         _U32T, _INT, _PTR]),
 }
 
 
@@ -223,11 +239,13 @@ def _check_kernel_inputs(q, k, v, *more):
                              f"16-byte aligned tensors; {name} is not")
 
 
-def _check_bwd_inputs(q, k, v, lse, do):
-    _check_kernel_inputs(q, k, v, ("do", do), ("lse", lse))
-    if do.shape != q.shape or do.dtype != q.dtype:
-        raise ValueError(f"flash attention backward takes dO of q's shape "
-                         f"and dtype, got {tuple(do.shape)} {do.dtype}")
+def _check_bwd_inputs(q, k, v, lse, do, o):
+    _check_kernel_inputs(q, k, v, ("do", do), ("lse", lse), ("o", o))
+    for name, x in (("do", do), ("o", o)):
+        if x.shape != q.shape or x.dtype != q.dtype:
+            raise ValueError(f"flash attention backward takes {name} of q's "
+                             f"shape and dtype, got {tuple(x.shape)} "
+                             f"{x.dtype}")
     if lse.shape != q.shape[:3] or lse.dtype != torch.float32:
         raise ValueError(f"flash attention backward takes an f32 lse of "
                          f"shape {tuple(q.shape[:3])}, got "
@@ -244,8 +262,9 @@ def _device_kind(x) -> str:
 def _seed_bits(dropout_p: float, seed) -> int:
     if dropout_p > 0.0 and seed is None:
         raise ValueError("flash attention: dropout_p > 0 requires a seed")
-    if not 0.0 <= dropout_p < 1.0:
-        raise ValueError(f"dropout_p must lie in [0, 1), got {dropout_p}")
+    if not (0.0 <= dropout_p < 1.0 and np.float32(dropout_p) < 1.0):
+        raise ValueError(f"dropout_p must lie in [0, 1) as an f32, got "
+                         f"{dropout_p}")
     return int(seed or 0) & _U32
 
 
@@ -275,8 +294,8 @@ def flash_mha_fwd(q, k, v, *, sm_scale=None, dropout_p: float = 0.0,
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     _launch("flash_attention_fwd", KERNEL, q.device, q.data_ptr(),
             k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(), b * h,
-            t, d, int(q.dtype == torch.bfloat16), float(sm_scale), p, scale,
-            seed_u32, t_pad)
+            t, d, int(q.dtype == torch.bfloat16), float(sm_scale),
+            keep_threshold(p), scale, seed_u32, t_pad)
     return o, lse
 
 
@@ -302,29 +321,31 @@ def flash_mha_bwd(q, k, v, o, lse, do, *, sm_scale, dropout_p: float = 0.0,
     if _device_kind(q) == "cpu":
         return flash_mha_bwd_reference(q, k, v, o, lse, do, sm_scale, p,
                                        seed_u32, block)
-    _check_bwd_inputs(q, k, v, lse, do)
+    _check_bwd_inputs(q, k, v, lse, do, o)
     b, h, t, d = q.shape
     mode = mode or bwd_mode(t_pad, d)
     if mode not in ("merged", "split"):
         raise ValueError(f"flash backward mode must be merged or split, got "
                          f"{mode!r}")
-    dvec = (do.float() * o.float()).sum(-1)
-    head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), dvec.data_ptr())
-    tail = (b * h, t, d, int(q.dtype == torch.bfloat16), float(sm_scale), p,
-            scale, _input_scale(p, q.dtype), seed_u32, t_pad)
+    head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr())
+    tail = (b * h, t, d, int(q.dtype == torch.bfloat16), float(sm_scale),
+            keep_threshold(p), scale, _input_scale(p, q.dtype), seed_u32,
+            t_pad)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
+    # dvec = rowsum(dO∘O) in f32: the merged kernel's prologue fills it
+    # (and zeros its f32 dq buffer); the split pair takes it from here
+    dvec = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
     if mode == "merged":
-        if q.dtype == torch.float32:
-            dq = acc = torch.zeros_like(q)
-        else:
-            dq = torch.empty_like(q)
-            acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
-        _launch("flash_bwd_merged", KERNEL_MERGED, q.device, *head,
-                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), acc.data_ptr(),
-                *tail)
-    else:
         dq = torch.empty_like(q)
+        acc = dq if q.dtype == torch.float32 else torch.empty(
+            q.shape, dtype=torch.float32, device=q.device)
+        _launch("flash_bwd_merged", KERNEL_MERGED, q.device, *head,
+                o.data_ptr(), lse.data_ptr(), dvec.data_ptr(), dq.data_ptr(),
+                dk.data_ptr(), dv.data_ptr(), acc.data_ptr(), *tail)
+    else:
+        torch.sum(do.float() * o.float(), -1, out=dvec)
+        dq = torch.empty_like(q)
+        head += (lse.data_ptr(), dvec.data_ptr())
         _launch("flash_bwd_dq", KERNEL_DQ, q.device, *head, dq.data_ptr(),
                 *tail)
         _launch("flash_bwd_dkv", KERNEL_DKV, q.device, *head, dk.data_ptr(),
@@ -348,7 +369,7 @@ def dropout_mask(seed: int, n_bh: int, t: int, dropout_p: float,
                          f"dropout_p > 0, got {n_bh}, {t}, {dropout_p}")
     out = torch.empty((n_bh, t, t), dtype=torch.float32, device=dev)
     _launch("flash_dropout_mask", KERNEL_MASK, dev, out.data_ptr(), n_bh, t,
-            p, scale, seed_u32, t_pad)
+            keep_threshold(p), scale, seed_u32, t_pad)
     return out
 
 

@@ -1,8 +1,10 @@
 """The port's flash-attention dropout stream and backward
 (deepsense6g_tii_tpu_torch/ops/flash_attention.py) against the JAX
-package's: the hash stream bit for bit, the forward with dropout and the
-gradients against the Pallas kernels in interpret mode, and the plain
-backward against torch autograd.
+package's: the hash stream bit for bit, the kernels' integer keep
+threshold against the float compare, the forward with dropout and the
+gradients against the Pallas kernels in interpret mode (also in bf16 at
+the production length, T = 962), and the plain backward against torch
+autograd.
 
 On a CPU tensor the port's wrappers run their plain versions, which is what
 these tests hold against JAX; the CUDA kernels are held against the same
@@ -196,4 +198,97 @@ def test_backward_input_checks(case):
     else:
         lse = lse.double()
     with pytest.raises(ValueError, match="backward"):
-        fa._check_bwd_inputs(q, k, v, lse, do)
+        fa._check_bwd_inputs(q, k, v, lse, do, q)
+
+
+# -- the integer keep threshold ------------------------------------------------
+
+@pytest.mark.parametrize("p", [0.1, 0.25, 0.3, 1 / 3, 0.5, 2.0 ** -24, 1e-7,
+                               0.9, 1 - 2.0 ** -24])
+def test_keep_threshold_equals_the_float_compare(p):
+    """The kernels keep an element when its 24-bit draw n is >=
+    keep_threshold(p); the plain stream when n·2^-24 >= p in f32.  The two
+    agree on all 2^24 draws."""
+    n = torch.arange(2 ** 24, dtype=torch.int64)
+    u = n.to(torch.float32) * 2.0 ** -24          # as uniform_hash forms it
+    thr = fa.keep_threshold(p)
+    assert 0 < thr <= 2 ** 24
+    assert torch.equal(n >= thr, u >= p)
+
+
+def test_keep_threshold_is_zero_without_dropout():
+    assert fa.keep_threshold(0.0) == 0
+
+
+# -- bf16 at the production length ---------------------------------------------
+
+T_FULL = 962              # 3 modalities x 5 frames x 8x8 anchors + 2 GPS
+
+
+def _bf16_qkv(seed, d, n=3):
+    """(1, 2, 962, d) inputs rounded to bf16, as numpy f32 and torch bf16."""
+    rng = np.random.default_rng(seed)
+    xs = [torch.from_numpy(rng.normal(size=(1, 2, T_FULL, d))
+                           .astype(np.float32)).bfloat16() for _ in range(n)]
+    return [x.float().numpy() for x in xs], xs
+
+
+def _bf16_ulps(x, n=2):
+    """n bf16 ulps at the largest |x| (8 significant bits)."""
+    return n * 2.0 ** (np.floor(np.log2(np.abs(x).max())) - 7)
+
+
+@pytest.mark.parametrize("p", [0.0, 0.1])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_bf16_forward_at_full_length_matches_pallas(d, p):
+    """The plain forward that the bf16 kernel is held to on the card,
+    against the Pallas kernel (interpret mode) at T = 962, bf16, with the
+    default 512 block: within 2 bf16 ulps of the largest |O| (the Pallas
+    kernel rounds P to bf16 before P·V, the plain version does not)."""
+    (q, k, v), xs = _bf16_qkv(d * 10 + int(p * 10), d)
+    key = jax.random.PRNGKey(d)
+    sm = d ** -0.5
+    want = np.asarray(jfa.flash_mha(
+        *(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)), sm_scale=sm,
+        dropout_p=p, rng=key if p else None, interpret=True),
+        dtype=np.float32)
+    got = fa.flash_mha(*xs, sm_scale=sm, dropout_p=p,
+                       seed=_seed(key) if p else None)
+    assert got.dtype == torch.bfloat16 and got.shape == (1, 2, T_FULL, d)
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=0,
+                               atol=_bf16_ulps(want))
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_bf16_grads_at_full_length_match_pallas(d):
+    """The plain backward that the merged bf16 kernel is held to on the
+    card, against the Pallas kernels' VJP (interpret mode) at T = 962, bf16,
+    dropout 0.1: each gradient within 2 bf16 ulps of its largest value."""
+    (q, k, v, w), xs = _bf16_qkv(d + 7, d, n=4)
+    key = jax.random.PRNGKey(5)
+    sm = d ** -0.5
+
+    def jax_loss(q, k, v):
+        o = jfa.flash_mha(q, k, v, sm_scale=sm, dropout_p=0.1, rng=key,
+                          interpret=True)
+        return jnp.sum(o.astype(jnp.float32) * w)
+
+    want = jax.grad(jax_loss, argnums=(0, 1, 2))(
+        *(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)))
+    qt, kt, vt = (x.clone().requires_grad_() for x in xs[:3])
+    o = fa.flash_mha(qt, kt, vt, sm_scale=sm, dropout_p=0.1, seed=_seed(key))
+    (o.float() * xs[3].float()).sum().backward()
+    for got, ref, name in zip((qt.grad, kt.grad, vt.grad), want, "qkv"):
+        ref = np.asarray(ref, dtype=np.float32)
+        assert got.dtype == torch.bfloat16
+        np.testing.assert_allclose(got.float().numpy(), ref, rtol=0,
+                                   atol=_bf16_ulps(ref), err_msg=f"d{name}")
+
+
+def test_dropout_p_must_stay_below_one_in_f32():
+    # 1 - 2^-26 < 1, but it rounds to 1.0 in f32: its threshold would be 2^24
+    q = torch.zeros(1, 1, 4, 16)
+    with pytest.raises(ValueError, match="dropout_p"):
+        fa.flash_mha(q, q, q, dropout_p=1 - 2.0 ** -26, seed=0)
+    assert fa.keep_threshold(np.nextafter(np.float32(1), np.float32(0))) \
+        == 2 ** 24 - 1

@@ -189,3 +189,39 @@ def test_tools_default_to_cuda():
                bench_scan.bench, bench_scan.inputs, bench_flash.bench,
                bench_flash.inputs, timing.time_ms):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+def test_bench_flash_loads_another_checkout(tmp_path):
+    """--root PATH: another checkout's flash module, imported under a name
+    of its own beside this one, building under its own root."""
+    import shutil
+    from deepsense6g_tii_tpu_torch.ops import flash_attention as fa
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    shutil.copytree(os.path.join(repo, "deepsense6g_tii_tpu_torch"),
+                    tmp_path / "deepsense6g_tii_tpu_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    shutil.copy(os.path.join(repo, "pyproject.toml"), tmp_path)
+    assert bench_flash.load_flash() is fa
+    assert bench_flash.load_flash(repo) is fa
+    other = bench_flash.load_flash(str(tmp_path))
+    assert other is not fa and other is bench_flash.load_flash(str(tmp_path))
+    assert other._build.CSRC_DIR == (tmp_path / "deepsense6g_tii_tpu_torch"
+                                     / "csrc")
+    assert other._build.BUILD_DIR == tmp_path / "build" / "kernels"
+    assert other._build.KERNEL_LAUNCHES is not _build.KERNEL_LAUNCHES
+    x = torch.from_numpy(np.random.default_rng(0).normal(
+        size=(1, 2, 40, 16)).astype(np.float32))
+    for a, b in zip(other.flash_mha_fwd(x, x, x), fa.flash_mha_fwd(x, x, x)):
+        assert torch.equal(a, b)
+
+
+def test_bench_flash_weights_a_gpt_step(monkeypatch):
+    """per_step sums each kernel's launch time over 8 launches at each head
+    dim, as a GPT TransFuser training step launches them."""
+    monkeypatch.setattr(bench_flash, "launch_ms",
+                        lambda d, p, device, flash: (d * (1 + p), 2.0 * d))
+    out = bench_flash.per_step(device="cpu")
+    assert set(out) == {"p=0.0", "p=0.1"}
+    assert out["p=0.0"]["fwd_ms"] == 8 * (16 + 32 + 64 + 128)
+    assert out["p=0.1"]["fwd_ms"] == pytest.approx(8 * 240 * 1.1)
+    assert out["p=0.1"]["bwd_ms"] == 8 * 2 * 240
