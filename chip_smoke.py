@@ -3,7 +3,8 @@
 GPU: the quickest proof that the port builds, is right, serves and trains.
 
     python3 chip_smoke.py                  # from the root of a checkout
-    python3 chip_smoke.py --parent PATH    # also times PATH's flash kernels
+    python3 chip_smoke.py --parent PATH    # also times PATH's flash and scan
+                                           # kernels
 
 Phases, in order; any failure exits non-zero and prints no result:
 
@@ -26,11 +27,17 @@ Phases, in order; any failure exits non-zero and prints no result:
               the plain backward and against each other;
             - the bf16 flash forward and merged backward at batch 1 (T =
               962) and at T = 70 and 1, every head dim;
-            - the selective scan forward in both directions;
+            - the selective scan forward in both directions (its split
+              into groups of chunks as the wrapper picks it, two calls
+              equal bit for bit);
             - the selective scan backward in both directions, on the
               forward kernel's chunk-entry states (held against the plain
               scan's states), with B and C column slices of a wider tensor
-              and one grouped-A case;
+              and one grouped-A case, two calls equal bit for bit;
+            - both scan kernels at the edges of their chunk layout (L = 1,
+              63, 64, 65, 129 at d = 40 and 1024; batch 1 at L = 962), the
+              forward at every group size that differs, f32 and bf16,
+              grouped A, two calls of each equal bit for bit;
             - the sequential selective-scan forward (variant="sequential")
               against its plain loop and against the chunked forward on the
               same inputs, its chunk-entry states against the plain states,
@@ -81,8 +88,9 @@ Phases, in order; any failure exits non-zero and prints no result:
 
 With --parent PATH, after the last phase, the flash forward and merged
 backward of the checkout at PATH are timed against this one's, per GPT
-training step, in turns on this card (their numbers join the kernels
-line's rows 1 and 2).  The line before the last is a JSON object with one
+training step, and its scan forward and backward per MambaFuser step and
+serving forward, in turns on this card (their numbers join the kernels
+line's rows 1, 2, 6 and 9).  The line before the last is a JSON object with one
 entry per kernel; the last line is {"ok": true, "device": {...}}.  TF32 is switched off for
 matmuls and convolutions, so the f32 comparisons are exact f32 on both
 sides; the bf16 serving path is unaffected by it.
@@ -146,6 +154,18 @@ SCAN_RTOL = 1e-5
 SCAN_BWD_RTOL = 1e-4
 SCAN_BWD_BF16_RTOL = 2.0 ** -7
 SCAN_GRADS = ("du", "ddt", "dA", "dB", "dC")
+# the device kernels of the scan's wrappers, by name: each call of the
+# forward runs its output pass and, where L is split, its state and carry
+# passes; each call of the backward its main pass and the sums of its
+# partials and, for more than one chunk, its local-gradient and carry
+# passes
+SCAN_FWD_PASSES = ("scan_fwd_kernel", "scan_carry_kernel")
+SCAN_BWD_PASSES = ("scan_bwd_kernel", "scan_bwd_local_kernel",
+                   "scan_carry_kernel", "scan_bwd_sums_kernel")
+# the kernel checks' edge shapes: L around one and two chunks at a d that
+# is no multiple of the blocks' channels, and at the widest d_inner
+SCAN_EDGE_L = (1, 63, 64, 65, 129)
+SCAN_EDGE_D = (40, 1024)
 # the sequential forward's gradients against the chunked forward's, f32, of
 # each gradient's largest element: the same backward kernel on the same
 # inputs, given chunk-entry states that differ by rounding alone
@@ -662,7 +682,12 @@ def phase_scan_kernel(sfu_rate):
             B, C = (rnd(BATCH, L, D_STATE).to(dtype) for _ in range(2))
             for reverse in (False, True):
                 y, h = ss.selective_scan_fwd(u, dt, A, B, C, reverse=reverse)
+                y2, h2 = ss.selective_scan_fwd(u, dt, A, B, C,
+                                               reverse=reverse)
                 torch.cuda.synchronize()
+                check(torch.equal(y, y2) and torch.equal(h, h2),
+                      f"scan kernel {dname} L={L} d={d} reverse={reverse}: "
+                      f"two calls on the same inputs differ")
                 ry, rh = ss.selective_scan_reference(u, dt, A, B, C, reverse)
                 err_y = (y - ry).abs().max().item()
                 err_h = (h - rh).abs().max().item()
@@ -684,6 +709,8 @@ def phase_scan_kernel(sfu_rate):
                 row = dict(
                     dtype=dname, L=L, d=d, reverse=reverse, max_abs_err=err_y,
                     h_err=err_h, max_abs_y=scale_y, ms=device_ms(kernel),
+                    chunks_per_group=ss.fwd_chunks_per_group(BATCH, L, d),
+                    kernels_per_call=kernels_per_call(kernel),
                     event_ms=time_ms(kernel),
                     plain_ms=device_ms(plain, iters=5, warmup=1),
                     bytes=nbytes, flops=flops, bytes_ms=1e3 * t_bytes,
@@ -692,7 +719,7 @@ def phase_scan_kernel(sfu_rate):
                     exps=exps, exp_sfu_ms=1e3 * exps / sfu_rate)
                 rows.append(row)
                 print("kernel selective_scan_fwd " + json.dumps(row))
-            del u, dt, A, B, C, y, h, ry, rh
+            del u, dt, A, B, C, y, h, y2, h2, ry, rh
             torch.cuda.empty_cache()
     return rows
 
@@ -707,24 +734,25 @@ def scan_fwd_work(L, d, esize):
             BATCH * L * d * D_STATE)
 
 
-def scan_inputs(gen, dtype, L, d, groups=0):
+def scan_inputs(gen, dtype, L, d, groups=0, batch=BATCH):
     """Scan inputs shaped as the MambaFuser gives them: u, dt and dy
-    (BATCH, L, d), dt = softplus(N(0, 1)), A = -(1..16) per channel (halved
+    (batch, L, d), dt = softplus(N(0, 1)), A = -(1..16) per channel (halved
     for a second group when ``groups`` is 2), and B and C as column slices
-    of an x_dbl (BATCH, L, d/32 + 32) after its dt_rank columns."""
+    of an x_dbl (batch, L, d/32 + 32) after its dt_rank columns (at least
+    one)."""
     import torch
     import torch.nn.functional as F
     rnd = lambda *s: torch.randn(*s, device=DEVICE, generator=gen)  # noqa: E731
-    u = rnd(BATCH, L, d).to(dtype)
-    dt = F.softplus(rnd(BATCH, L, d))
+    u = rnd(batch, L, d).to(dtype)
+    dt = F.softplus(rnd(batch, L, d))
     A = -torch.arange(1, D_STATE + 1, dtype=torch.float32,
                       device=DEVICE).expand(d, D_STATE).contiguous()
     if groups:
         A = torch.stack([A, 0.5 * A])
-    r = d // 32
-    x_dbl = rnd(BATCH, L, r + 2 * D_STATE).to(dtype)
+    r = max(d // 32, 1)
+    x_dbl = rnd(batch, L, r + 2 * D_STATE).to(dtype)
     B, C = x_dbl[..., r:r + D_STATE], x_dbl[..., r + D_STATE:]
-    return u, dt, A, B, C, rnd(BATCH, L, d)
+    return u, dt, A, B, C, rnd(batch, L, d)
 
 
 def phase_scan_bwd(sfu_rate):
@@ -750,7 +778,12 @@ def phase_scan_bwd(sfu_rate):
             _, _, h_in = ss._launch_fwd(u, dt, A, B, C, reverse, True)
             got = ss.selective_scan_bwd(u, dt, A, B, C, dy, h_in,
                                         reverse=reverse)
+            again = ss.selective_scan_bwd(u, dt, A, B, C, dy, h_in,
+                                          reverse=reverse)
             torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                  f"scan backward {dname} L={L} d={d} G={groups} "
+                  f"reverse={reverse}: two calls on the same inputs differ")
             ref_h = ss.chunk_states_reference(u, dt, A, B, C, reverse)
             err_h = (h_in - ref_h).abs().max().item()
             scale_h = ref_h.abs().max().item()
@@ -780,15 +813,80 @@ def phase_scan_bwd(sfu_rate):
                                           reverse, sfu_rate))
             rows.append(row)
             print("kernel selective_scan_bwd " + json.dumps(row))
-            del got, ref, ref_h, h_in
+            del got, again, ref, ref_h, h_in
         del u, dt, A, B, C, dy
         torch.cuda.empty_cache()
     return rows
 
 
+def phase_scan_edges():
+    """The scan kernels at the edges of their chunk layout: L = 1, 63, 64,
+    65 and 129 at d = 40 (no multiple of a block's channels) and d = 1024,
+    and batch 1 at L = 962 (the forward's split into groups of one chunk),
+    in both directions, f32 and bf16, with B and C column slices of x_dbl
+    and grouped A (G = 2 at batch 2).  The forward at every group size
+    that differs (one chunk a group, two, all) against the plain scan and
+    its chunk-entry states (SCAN_RTOL), the backward against the plain
+    backward (SCAN_BWD_RTOL, bf16 du/dB/dC SCAN_BWD_BF16_RTOL); two calls of
+    each on the same inputs equal bit for bit."""
+    import torch
+    from deepsense6g_tii_tpu_torch.ops import selective_scan as ss
+
+    gen = torch.Generator(device=DEVICE).manual_seed(6)
+    cases = [(2, L, d, 2) for L in SCAN_EDGE_L for d in SCAN_EDGE_D]
+    cases.append((1, TOKENS, 256, 0))
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[1]
+        for b, L, d, groups in cases:
+            u, dt, A, B, C, dy = scan_inputs(gen, dtype, L, d, groups, b)
+            nc = ss.num_chunks(L)
+            for reverse in (False, True):
+                label = (f"scan edge {dname} b={b} L={L} d={d} G={groups} "
+                         f"reverse={reverse}")
+                ry, rh = ss.selective_scan_reference(u, dt, A, B, C, reverse)
+                rh_in = ss.chunk_states_reference(u, dt, A, B, C, reverse)
+                for G in sorted({1, 2, nc}):
+                    outs = [ss._launch_fwd(u, dt, A, B, C, reverse, True, G)
+                            for _ in range(2)]
+                    torch.cuda.synchronize()
+                    check(all(torch.equal(a, c) for a, c in zip(*outs)),
+                          f"{label} groups of {G}: two calls differ")
+                    rel = {k: rel_gap(a, r) for k, a, r in zip(
+                        ("y", "h_out", "h_in"), outs[0], (ry, rh, rh_in))}
+                    check(max(rel.values()) <= SCAN_RTOL,
+                          f"{label} groups of {G}: {rel} (rtol {SCAN_RTOL})")
+                    worst["fwd"] = max(worst.get("fwd", 0),
+                                       *rel.values())
+                h_in = outs[0][2]
+                got, again = (ss.selective_scan_bwd(
+                    u, dt, A, B, C, dy, h_in, reverse=reverse)
+                    for _ in range(2))
+                torch.cuda.synchronize()
+                check(all(torch.equal(a, c) for a, c in zip(got, again)),
+                      f"{label}: two backward calls differ")
+                ref = ss.selective_scan_bwd_reference(u, dt, A, B, C, dy,
+                                                      reverse)
+                rel = {k: rel_gap(g, r)
+                       for k, g, r in zip(SCAN_GRADS, got, ref)}
+                tol = {k: SCAN_BWD_BF16_RTOL if (
+                    dname == "bfloat16" and k in ("du", "dB", "dC"))
+                    else SCAN_BWD_RTOL for k in SCAN_GRADS}
+                check(all(rel[k] <= tol[k] for k in SCAN_GRADS),
+                      f"{label}: backward {rel} (rtol {tol})")
+                key = f"bwd {dname}"
+                worst[key] = max(worst.get(key, 0), *rel.values())
+            del u, dt, A, B, C, dy
+    torch.cuda.empty_cache()
+    print(f"scan edges: {len(cases)} shapes x 2 dtypes x 2 directions, "
+          f"largest error over largest value: {json.dumps(worst)}")
+    return worst
+
+
 def scan_bwd_times(ss, u, dt, A, B, C, dy, h_in, reverse, sfu_rate):
-    """Device time of the backward (the kernel and the wrapper's sums of
-    the partials), the kernel alone, and the plain backward, beside the
+    """Device time of the backward (the whole wrapper), the kernel alone
+    (its passes: local gradients, carry, main, the partials' sums), its
+    device kernels a call, and the plain backward, beside the
     bound, the larger of: the bytes the function must move (u, dt, dy, B,
     C, A and h_in read once, du, ddt, dA, dB, dC written once) at the HBM
     rate, and about 16 f32 operations per (t, d, n) at the CUDA-core rate.
@@ -812,7 +910,8 @@ def scan_bwd_times(ss, u, dt, A, B, C, dy, h_in, reverse, sfu_rate):
         u, dt, A, B, C, dy, h_in, reverse=reverse)
     return dict(
         ms=device_ms(wrapper),
-        kernel_ms=named_kernel_ms(wrapper, ("scan_bwd_kernel",))[0],
+        kernel_ms=passes_ms(wrapper, SCAN_BWD_PASSES),
+        kernels_per_call=kernels_per_call(wrapper),
         event_ms=time_ms(wrapper),
         plain_ms=device_ms(lambda: ss.selective_scan_bwd_reference(
             u, dt, A, B, C, dy, reverse), iters=3, warmup=1),
@@ -1040,6 +1139,49 @@ def named_kernel_ms(fn, tags, iters=10, tries=3):
           f"last holds {[len(t) for t in times]} of {iters}, timed by the "
           f"mean")
     return [sum(t) / len(t) / 1e3 for t in times]
+
+
+def passes_ms(fn, tags, iters=10, tries=3):
+    """Device time per call of ``fn`` of all the kernels whose names hold
+    one of ``tags`` (a kernel's passes: it may run one, or several, a
+    call), from a trace of ``iters`` calls.  The passes' launches must be a
+    multiple of ``iters``; a trace where they are not (the profiler on the
+    card's machine now and then drops device events) is taken again, up to
+    ``tries`` times."""
+    import torch
+    fn()
+    for _ in range(tries):
+        kernels, _ = traced_kernels(lambda: [fn() for _ in range(iters)])
+        torch.cuda.synchronize()
+        times = [e.time_range.elapsed_us() for e in kernels
+                 if any(tag in e.name for tag in tags)]
+        if times and len(times) % iters == 0:
+            return sum(times) / iters / 1e3
+    fail(f"{tries} traces hold {len(times)} launches of {tags} for {iters} "
+         f"calls")
+
+
+def kernels_per_call(fn, tries=3):
+    """The device kernels one call of ``fn`` launches, by name, from a
+    trace of one call (the most of ``tries`` traces, as the profiler now
+    and then drops events)."""
+    from collections import Counter
+    fn()
+    best = Counter()
+    for _ in range(tries):
+        kernels, _ = traced_kernels(fn)
+        counts = Counter(short_name(e.name) for e in kernels)
+        if sum(counts.values()) > sum(best.values()):
+            best = counts
+    return dict(best)
+
+
+def short_name(name):
+    """A kernel's name without its return type, namespaces, template
+    arguments and parameters."""
+    name = name.replace("(anonymous namespace)::", "")
+    name = name.split("<")[0].split("(")[0].split("::")[-1].strip()
+    return name.split()[-1] if name else name
 
 
 def phase_slice(card, name, cfg, expect, f32_runs, f32_checks):
@@ -1488,12 +1630,39 @@ def phase_flash_parent(root):
     return out
 
 
+def phase_scan_parent(root):
+    """With ``--parent PATH``: the scan forward and backward wrappers of the
+    checkout at PATH against this checkout's, per MambaFuser step and
+    serving forward (tools/bench_scan.per_step: the five scan shapes,
+    bf16, each wrapper's every pass and partial sum, 16 launches at each
+    L = 962 shape and 3 at L = 5), timed on this card in the order parent,
+    change, change, parent.  Returns each side's mean of its two runs, or
+    None without a parent."""
+    if not root:
+        return None
+    from deepsense6g_tii_tpu_torch.tools import bench_scan
+    check(os.path.isdir(os.path.join(root, "deepsense6g_tii_tpu_torch")),
+          f"--parent {root}: no deepsense6g_tii_tpu_torch there")
+    runs = {"parent": [], "change": []}
+    for who in ("parent", "change", "change", "parent"):
+        runs[who].append(bench_scan.per_step(
+            DEVICE, bench_scan.load_scan(root if who == "parent" else None)))
+    out = {who: {k: (r[0][k] + r[1][k]) / 2 for k in r[0]
+                 if k != "launch_ms"} for who, r in runs.items()}
+    out["runs"] = runs
+    print("scan per Mamba step and serving forward, parent vs change (bf16; "
+          "parent, change, change, parent): " + json.dumps(
+              {who: out[who] for who in ("parent", "change")}))
+    return out
+
+
 def main(argv=None):
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", default=None, metavar="PATH",
-                    help="a checkout whose flash kernels to time against "
-                         "this one's (e.g. a git archive of the parent)")
+                    help="a checkout whose flash and scan kernels to time "
+                         "against this one's (e.g. a git archive of the "
+                         "parent)")
     args = ap.parse_args(argv)
     card, sfu_rate, fmul_rate = phase_device()
     phase_build()
@@ -1503,6 +1672,7 @@ def main(argv=None):
     batch1 = phase_flash_shapes()
     scan_rows = phase_scan_kernel(sfu_rate)
     scan_bwd_rows = phase_scan_bwd(sfu_rate)
+    phase_scan_edges()
     seq_rows = phase_scan_seq(sfu_rate)
     chain_rows = phase_chain(fmul_rate, sfu_rate)
     _, roofline_launches = phase_roofline(fmul_rate)
@@ -1620,6 +1790,7 @@ def main(argv=None):
     # after every traced phase: the parent's kernels load beside this
     # checkout's
     parent = phase_flash_parent(args.parent)
+    scan_parent = phase_scan_parent(args.parent)
     # per training step at dropout 0 too: the kernels against SDPA
     fwd0, bwd0 = ([r for r in rows if r["dtype"] == "bfloat16"
                    and r["p"] == 0.0] for rows in (flash_rows, bwd_rows))
@@ -1677,6 +1848,22 @@ def main(argv=None):
               exp_sfu_ms=summed(bwd, "exp_sfu_ms")),
     ]
     msteps = mtrain["launches_per_step"]
+
+    def scan_vs_parent(keys):
+        """The scan rows' per-step ms, parent and change, from --parent:
+        the first key is the row's own measure."""
+        if scan_parent is None:
+            return {"parent_ms": None, "vs_parent": None}
+        return {"parent_ms": scan_parent["parent"][keys[0]],
+                "vs_parent": {k: {"parent_ms": scan_parent["parent"][k],
+                                  "ms": scan_parent["change"][k]}
+                              for k in keys}}
+
+    scan_parent_keys = {
+        ss.KERNEL: ("fwd_per_serving_forward_b8_ms",
+                    "fwd_per_serving_forward_b1_ms",
+                    "fwd_h_in_per_mamba_step_ms"),
+        ss.KERNEL_BWD: ("bwd_per_mamba_step_ms",)}
     for name, line, rows, n in (
             (ss.KERNEL, 206, scan_main, SCAN_LAUNCHES),
             (ss.KERNEL_REV, 234, scan_rev, rev_n),
@@ -1696,7 +1883,12 @@ def main(argv=None):
             "bound_by": ("bytes" if per_forward(rows, n, "bytes_ms")
                          >= per_forward(rows, n, "ops_ms")
                          else "operations"),
-            "library_ms": None})
+            "library_ms": None,
+            "exp_sfu_ms": per_forward(rows, n, "exp_sfu_ms"),
+            "kernels_per_call": {f"L={L} d={d}": r["kernels_per_call"]
+                                 for (L, d), r in rows.items()},
+            **(scan_vs_parent(scan_parent_keys[name])
+               if name in scan_parent_keys else {})})
     # #8 per serving forward, had the fusion stages and TimeMamba run the
     # sequential variant (the shapes and launches of #6); #11 one launch at
     # each chain length, mul and exp.  Their launches are the roofline

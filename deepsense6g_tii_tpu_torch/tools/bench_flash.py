@@ -28,12 +28,8 @@ change, change, parent.  Times are CUDA events around many calls
 from __future__ import annotations
 
 import argparse
-import hashlib
-import importlib
-import importlib.util
 import json
 import os
-import sys
 
 import numpy as np
 import torch
@@ -53,20 +49,7 @@ def load_flash(root=None):
     """``ops/flash_attention.py`` of the checkout at ``root`` (default: this
     one).  Another checkout's package is imported under a name of its own,
     so its kernels load beside this one's; they build under its root."""
-    if root is None:
-        return fa
-    pkg = os.path.join(os.path.abspath(root), "deepsense6g_tii_tpu_torch")
-    if os.path.samefile(pkg, _PACKAGE):
-        return fa
-    name = "_flash_root_" + hashlib.sha1(pkg.encode()).hexdigest()[:12]
-    if name not in sys.modules:
-        spec = importlib.util.spec_from_file_location(
-            name, os.path.join(pkg, "__init__.py"),
-            submodule_search_locations=[pkg])
-        module = importlib.util.module_from_spec(spec)
-        sys.modules[name] = module
-        spec.loader.exec_module(module)
-    return importlib.import_module(name + ".ops.flash_attention")
+    return timing.load_checkout(root, "ops.flash_attention")
 
 
 def inputs(d, dtype, seed=0, device="cuda", batch=B, n=3):

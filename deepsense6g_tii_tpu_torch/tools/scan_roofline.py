@@ -17,6 +17,11 @@ beside the count of the kernels' own inner loops::
     implied_ops = t_scan * calibrated_mul_rate / (B * L * n * d)
     overhead_x  = implied_ops / analytic_ops       (1.0: speed of light)
 
+The analytic counts are the recurrence's work, as the one-pass kernels
+issued it; the chunk-parallel kernels issue more (a second pass over the
+exponentials), and the forward and backward rows print their own issued
+counts and ``issued_overhead_x`` beside.
+
 Times are CUDA events around many launches (tools/timing.py).  The chain
 lengths are this card's, not the TPU tool's 8/72 multiplies and 4/20
 exps: at those the chain is memory-bound on an H100 and the difference of
@@ -69,6 +74,19 @@ B_, L_, D_, N_ = 16, 962, 1024, 16
 #   shuffle-adds (1); dt*u in each sweep (2/16).
 FWD_OPS, SEQ_OPS, BWD_OPS = 4 + 0.5 + 1 / 16, 4 + 4 / 16, 15 + 2 / 16
 FWD_EXPS, SEQ_EXPS, BWD_EXPS = 1, 1, 2
+# What the chunk-parallel kernels issue per (t, d, n) element instead
+# (printed beside the counts above, which stay the recurrence's work so
+# that overhead_x compares across designs), at this tool's geometry:
+# - the forward runs unsplit at B=16, d=1024 (one group); its y sums take
+#   6 adds a lane per 8 steps (0.1875): 4 + 0.1875 + 1/16, one exp.
+# - the backward: the local gradient pass (dt*A', C*dy, the add, a*g: 4,
+#   its dt sum 1/16), the checkpoint sweep over 3 of 4 sub-chunks (dt*A',
+#   a*h, the FFMA, dt*u a lane-step: 3.25 x 0.75), the recompute (dt*A',
+#   a*h, FFMA, h*dy, dt*u, the dC channel sum's adds: 5.25) and the
+#   gradient sweep (8 as before, dt*u, the dB sum's adds, the scattered
+#   du/ddt sums and their products: ~9.7); exps 1 + 0.75 + 1 + 1.
+FWD_ISSUED_OPS, FWD_ISSUED_EXPS = 4 + 0.1875 + 1 / 16, 1
+BWD_ISSUED_OPS, BWD_ISSUED_EXPS = 4 + 1 / 16 + 3.25 * 0.75 + 5.25 + 9.7, 3.75
 
 _PTR, _INT, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
@@ -151,6 +169,16 @@ def scan_inputs(seed: int, device="cuda"):
     return u.bfloat16(), dt, A, Bm.bfloat16(), Cm.bfloat16()
 
 
+def _issued(row, fp32_ops, exps, exp_cost):
+    """``row`` with the kernel's own issued instructions per element (its
+    FP32 instructions and exponentials, priced as in :func:`_row`) and the
+    time they imply against the measured one."""
+    ops = fp32_ops + exps * exp_cost
+    return {**row, "issued_fp32_ops_per_element": fp32_ops,
+            "issued_exps_per_element": exps,
+            "issued_overhead_x": row["implied_ops_per_element"] / ops}
+
+
 def _row(ms, mul_rate, fp32_ops, exp_muls, elements):
     """One kernel's line: its time in FMULs per element against the count
     of its FP32 instructions plus its exponentials priced in FMULs, as the
@@ -203,10 +231,12 @@ def roofline(seed: int = 0, device="cuda") -> dict:
         "geometry": {"B": B_, "L": L_, "d": D_, "n": N_, "TL": ss.CHUNK,
                      "elements": elements},
         "calibration": calib,
-        "fwd": _row(t_fwd, mul_rate, FWD_OPS, FWD_EXPS * exp_cost,
-                    elements),
-        "bwd": _row(t_fwdbwd - t_fwd, mul_rate, BWD_OPS,
-                    BWD_EXPS * exp_cost, elements),
+        "fwd": _issued(_row(t_fwd, mul_rate, FWD_OPS, FWD_EXPS * exp_cost,
+                            elements), FWD_ISSUED_OPS, FWD_ISSUED_EXPS,
+                       exp_cost),
+        "bwd": _issued(_row(t_fwdbwd - t_fwd, mul_rate, BWD_OPS,
+                            BWD_EXPS * exp_cost, elements), BWD_ISSUED_OPS,
+                       BWD_ISSUED_EXPS, exp_cost),
         "fwd_sequential": _row(t_seq, mul_rate, SEQ_OPS,
                                SEQ_EXPS * exp_cost, elements),
     }

@@ -7,8 +7,10 @@ two checkouts can be timed in turn on one card:
 PATH defaults to the checkout that holds this file.  The shapes are those
 of a serving forward at batch 8: bf16 u, B and C (B and C contiguous), f32
 dt and A, L = 962 at d = 128, 256, 512, 1024 and L = 5 at d = 1024, both
-directions, no autograd (so no ``h_in``).  Each is the kernel's time per
-launch from torch.profiler, summed over ``--iters`` launches; ``per_forward``
+directions, no autograd (so no ``h_in``).  Each is the kernel's device
+time per call from torch.profiler over ``--iters`` calls, every pass it
+runs included (``PASSES``: a call that splits L into groups runs a state,
+a carry and an output pass); ``per_forward``
 weights them as a serving forward launches them (16 at each stage's
 d_inner, 3 at L = 5, forward direction).  Prints the card's name and power
 limit, then one JSON line.  Imports only torch and the timed package.
@@ -24,12 +26,16 @@ SHAPES = ((962, 128), (962, 256), (962, 512), (962, 1024), (5, 1024))
 LAUNCHES = {(962, 128): 16, (962, 256): 16, (962, 512): 16, (962, 1024): 16,
             (5, 1024): 3}
 BATCH, D_STATE = 8, 16
+# the names of the forward's device kernels, in this checkout and before
+# it (one kernel, scan_fwd_kernel, a call)
+PASSES = ("scan_fwd_kernel", "scan_carry_kernel")
 
 
 def kernel_ms(fn, iters, tries=3):
-    """Per-call device time of the kernels named scan_fwd_kernel that
-    ``fn`` launches, from a trace of ``iters`` calls; a trace that holds
-    fewer launches than calls is taken again, up to ``tries`` times."""
+    """Per-call device time of the kernels named by PASSES that ``fn``
+    launches, from a trace of ``iters`` calls; a trace whose launches are
+    not a multiple of the calls (the profiler dropped some) is taken again,
+    up to ``tries`` times."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
@@ -43,11 +49,11 @@ def kernel_ms(fn, iters, tries=3):
             torch.cuda.synchronize()
         times = [e.time_range.elapsed_us() for e in prof.events()
                  if e.device_type == torch.autograd.DeviceType.CUDA
-                 and "scan_fwd_kernel" in e.name]
-        if len(times) == iters:
+                 and any(tag in e.name for tag in PASSES)]
+        if times and len(times) % iters == 0:
             return sum(times) / iters / 1e3
-    raise RuntimeError(f"{tries} traces held too few scan_fwd_kernel "
-                       f"launches ({len(times)} of {iters})")
+    raise RuntimeError(f"{tries} traces held {len(times)} launches of "
+                       f"{PASSES} for {iters} calls")
 
 
 def main(argv=None):

@@ -15,7 +15,12 @@ refuses to run without CUDA, so no CPU time is printed as a device time.
 
 from __future__ import annotations
 
+import hashlib
+import importlib
+import importlib.util
+import os
 import subprocess
+import sys
 import time
 
 FP32_LANES_PER_SM = 128      # Hopper: FP32 units per SM, one FMUL a clock
@@ -56,6 +61,30 @@ def time_ms(fn, device="cuda", iters: int = 20, warmup: int = 3,
             ms = 1e3 * (time.perf_counter() - t0)
         best = min(best, ms / iters)
     return best
+
+
+_PACKAGE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def load_checkout(root, module: str):
+    """``deepsense6g_tii_tpu_torch.<module>`` of the checkout at ``root``
+    (None: this one).  Another checkout's package is imported under a name
+    of its own, so that its kernels load beside this one's; they build
+    under its root.  The kernel tools' ``--root`` rests on it."""
+    if root is None:
+        return importlib.import_module(f"deepsense6g_tii_tpu_torch.{module}")
+    pkg = os.path.join(os.path.abspath(root), "deepsense6g_tii_tpu_torch")
+    if os.path.samefile(pkg, _PACKAGE):
+        return importlib.import_module(f"deepsense6g_tii_tpu_torch.{module}")
+    name = "_root_" + hashlib.sha1(pkg.encode()).hexdigest()[:12]
+    if name not in sys.modules:
+        spec = importlib.util.spec_from_file_location(
+            name, os.path.join(pkg, "__init__.py"),
+            submodule_search_locations=[pkg])
+        package = importlib.util.module_from_spec(spec)
+        sys.modules[name] = package
+        spec.loader.exec_module(package)
+    return importlib.import_module(f"{name}.{module}")
 
 
 def _smi(query: str) -> str:
