@@ -79,7 +79,24 @@ Phases, in order; any failure exits non-zero and prints no result:
             step through the scan kernels and one through the plain scan,
             with reverse_scan_kernel off and on, held to the GPT step's
             limits.
-8. roofline  the kernel-tool path: python -m deepsense6g_tii_tpu_torch.tools.
+8. cli      the training entry point users call, python -m
+            deepsense6g_tii_tpu_torch.cli.train, through its main in-process,
+            on a DeepSense-layout tree that the port's utils/demo_data.py
+            writes under build/cli (960x540 camera frames, 5 frames a
+            sample; 16 development, 8 adaptation and 8 test samples): the
+            full-width MambaFuser with the CLI's defaults (bf16) and --ema 1
+            trains 2 epochs at batch 8 (batches of 8, 8 and 5), validating
+            and checkpointing each; every train step launches exactly 67
+            scan forwards and 67 scan backwards; the loss is finite and the
+            model, best-model, optimizer and run-record files exist; a
+            second main resumes to epoch 3; --Test 1 --load_model_path
+            <logdir>/best_model writes beam_pred.csv (8 rows of beams in
+            1..64) and the confidence CSV.  Then --FFM 0 --TFM 0 --n_layer 2
+            for one epoch and a test: 8 flash forwards and 8 merged
+            backwards a step.  Prints each epoch's samples/s, share of the
+            epoch spent waiting for data, peak memory and read-backs, and
+            the loader's ms a batch and the camera reader's ms a frame.
+9. roofline  the kernel-tool path: python -m deepsense6g_tii_tpu_torch.tools.
             scan_roofline's main (the chain calibration, the chunked and
             sequential scan forwards and the backward at B=16, L=962,
             d=1024), its JSON line printed; it must launch the chain, both
@@ -195,6 +212,12 @@ TRAIN_GRAD_RTOL = 1e-2      # all gradients, of their norm
 TRAIN_GRAD_TENSOR_RTOL = 0.1    # per tensor, of its largest |g|
 TRAIN_SPLIT_RTOL = 1e-4     # merged against split backward, of the norm
 ATTN_F64_RTOL = 1e-5        # attention kernels against f64, of max |ref|
+# the cli phase's demo tree: the DeepSense camera's 960x540 frames (so the
+# reader's resize to 256 runs), 5 frames a sample, and per scenario (2 a
+# split) 8 development, 4 adaptation and 4 test samples: 16, 8 and 8
+CLI_FRAME = (540, 960)
+CLI_SPLITS = (8, 4, 4)
+CLI_BATCH, CLI_EPOCHS, CLI_GPT_LAYERS = 8, 2, 2
 
 
 def fail(msg):
@@ -1365,6 +1388,193 @@ def phase_train(card, name, cfg, expect):
     return result, init, batch
 
 
+def cli_run(argv, step_counts, label):
+    """One in-process run of the train CLI's main; every train step's
+    launches (counts at 0 just before the step, read just after) go to
+    ``step_counts``.  Returns the run's seconds."""
+    from deepsense6g_tii_tpu_torch.cli import train as cli
+    from deepsense6g_tii_tpu_torch.ops import _build
+    from deepsense6g_tii_tpu_torch.train import engine
+
+    real = engine.make_train_step
+
+    def counting(*a, **k):
+        step = real(*a, **k)
+
+        def counted(batch, lr):
+            _build.reset_launch_counts()
+            out = step(batch, lr)
+            step_counts.append(dict(_build.KERNEL_LAUNCHES))
+            return out
+        return counted
+
+    engine.make_train_step = counting
+    t0 = time.perf_counter()
+    try:
+        check(cli.main(argv) == 0, f"cli {label}: main did not return 0")
+    finally:
+        engine.make_train_step = real
+    return time.perf_counter() - t0
+
+
+def epoch_perf(logdir):
+    """The engine's per-epoch numbers from the run's scalars.jsonl."""
+    out = {}
+    with open(os.path.join(logdir, "scalars.jsonl")) as f:
+        for line in f:
+            r = json.loads(line)
+            if r["tag"].startswith("perf/") and "dispatch" not in r["tag"]:
+                out.setdefault(r["step"], {})[r["tag"][5:]] = r["value"]
+    return [out[e] for e in sorted(out)]
+
+
+def check_test_csvs(out_dir, n, label):
+    import csv
+    with open(os.path.join(out_dir, "beam_pred.csv"), newline="") as f:
+        rows = list(csv.reader(f))
+    check(rows[0] == ["index", "top-1 beam", "top-2 beam", "top-3 beam"]
+          and len(rows) == 1 + n, f"cli {label}: beam_pred.csv {rows[:2]}, "
+          f"{len(rows) - 1} rows, expected {n}")
+    check(all(1 <= int(b) <= 64 for r in rows[1:] for b in r[1:]),
+          f"cli {label}: beams outside 1..64: {rows}")
+    with open(os.path.join(out_dir, "beam_pred_confidence_seq.csv"),
+              newline="") as f:
+        conf = list(csv.reader(f))
+    check(len(conf) == 1 + n and all(0 < float(r[1]) <= 1
+                                     for r in conf[1:]),
+          f"cli {label}: confidence CSV {conf}")
+
+
+def phase_cli(card):
+    """The training entry point users call, python -m deepsense6g_tii_tpu_
+    torch.cli.train, driven in-process through its main on a DeepSense-
+    layout tree that the port's utils/demo_data.py writes under build/.
+    The full-width MambaFuser (defaults: FFM 1, TFM 1, bf16, scheduler,
+    dropouts 0.1) trains 2 epochs with --ema 1 at batch 8 (21 training
+    samples: batches of 8, 8 and 5), validates and checkpoints each epoch;
+    a second main resumes to epoch 3 from the run record; --Test 1 with
+    --load_model_path writes the test CSVs.  Every train step launches
+    exactly 67 scan forwards and 67 scan backwards.  Then the GPT
+    TransFuser (--FFM 0 --TFM 0) at --n_layer 2 for one epoch and a test:
+    4 x n_layer flash forwards and merged backwards a step.  Also times the
+    loader alone (ms a batch) and the camera reader (ms a frame)."""
+    import shutil
+    import numpy as np
+    import torch
+    from deepsense6g_tii_tpu_torch.config import GlobalConfig
+    from deepsense6g_tii_tpu_torch.data.dataset import build_train_val_sets
+    from deepsense6g_tii_tpu_torch.data.loader import DataLoader
+    from deepsense6g_tii_tpu_torch.ops import flash_attention as fa
+    from deepsense6g_tii_tpu_torch.ops import selective_scan as ss
+    from deepsense6g_tii_tpu_torch.utils import image
+    from deepsense6g_tii_tpu_torch.utils.demo_data import make_demo_root
+
+    base = os.path.join(REPO, "build", "cli")
+    shutil.rmtree(base, ignore_errors=True)
+    root = os.path.join(base, "data")
+    t0 = time.perf_counter()
+    make_demo_root(root, *CLI_SPLITS, seq_len=5, seed=0,
+                   frame_shape=CLI_FRAME)
+    tree_s = time.perf_counter() - t0
+    common = ["--data_root", root, "--augmentation", "0",
+              "--batch_size", str(CLI_BATCH), "--num_workers", "8"]
+    # the 90% training share of development and adaptation, 2 scenarios
+    n_train = int(0.9 * 2 * (CLI_SPLITS[0] + CLI_SPLITS[1]))
+    n_test = 2 * CLI_SPLITS[2]
+    n_scan = sum(SCAN_LAUNCHES.values())
+    result = {"tree_s": tree_s}
+
+    # the host side alone: the training loader over one epoch, and frames
+    cfg = GlobalConfig()
+    train_set, _ = build_train_val_sets(
+        cfg, trainval_root=root + "/Multi_Modal/",
+        train_root_csv="ml_challenge_dev_multi_modal.csv",
+        adaptation_root=root + "/Adaptation_dataset_multi_modal/",
+        adaptation_csv="ml_challenge_data_adaptation_multi_modal.csv",
+        augmentation=False)
+    check(len(train_set) == n_train, f"cli: {len(train_set)} training "
+          f"samples, expected {n_train}")
+    loader = DataLoader(train_set, CLI_BATCH, shuffle=True, num_workers=8)
+    t0 = time.perf_counter()
+    sizes = [len(b["image"]) for b in loader]
+    result["loader_ms_per_batch"] = 1e3 * (time.perf_counter() - t0) / len(
+        sizes)
+    dev = train_set.dataset.datasets[0]
+    frame = dev.root + dev.columns["unit1_rgb_1"][0]
+    t0 = time.perf_counter()
+    for _ in range(20):
+        image.read_frame(frame, 256)
+    result["frame_read_ms"] = 1e3 * (time.perf_counter() - t0) / 20
+
+    legs = {}
+    for name, flags, epochs, expect in (
+            ("mamba", ["--ema", "1"], CLI_EPOCHS,
+             {ss.KERNEL: n_scan, ss.KERNEL_BWD: n_scan}),
+            ("gpt", ["--FFM", "0", "--TFM", "0",
+                     "--n_layer", str(CLI_GPT_LAYERS)], 1,
+             {fa.KERNEL: 4 * CLI_GPT_LAYERS,
+              fa.KERNEL_MERGED: 4 * CLI_GPT_LAYERS})):
+        logdir = os.path.join(base, name)
+        counts, leg = [], {}
+        argv = common + flags + ["--logdir", logdir]
+        torch.cuda.synchronize()
+        leg["train_s"] = cli_run(argv + ["--epochs", str(epochs)], counts,
+                                 f"{name} train")
+        steps = -(-n_train // CLI_BATCH)
+        check(len(counts) == steps * epochs, f"cli {name}: {len(counts)} "
+              f"train steps, expected {steps * epochs}")
+        for i, c in enumerate(counts):
+            check(c == expect, f"cli {name} step {i}: launches {c}, "
+                  f"expected exactly {expect}")
+        with open(os.path.join(logdir, "recent.log")) as f:
+            rec = json.load(f)
+        check(rec["epoch"] == epochs and len(rec["train_loss"]) == epochs
+              and np.isfinite(rec["train_loss"]).all()
+              and np.isfinite(rec["val_loss"]).all(),
+              f"cli {name}: run record {rec}")
+        for stem in ("final_model", "best_model", "best_optim"):
+            check(os.path.isfile(os.path.join(logdir, stem + ".pt")),
+                  f"cli {name}: {stem}.pt missing")
+        leg["launches_per_step"] = counts[0]
+        leg["train_loss"] = rec["train_loss"]
+        leg["val_loss"] = rec["val_loss"]
+        leg["DBA"] = rec["DBA"]
+        if name == "mamba":
+            counts = []
+            leg["resume_s"] = cli_run(argv + ["--epochs", str(epochs + 1)],
+                                      counts, f"{name} resume")
+            with open(os.path.join(logdir, "recent.log")) as f:
+                rec = json.load(f)
+            check(rec["epoch"] == epochs + 1 and len(counts) == steps
+                  and all(c == expect for c in counts)
+                  and np.isfinite(rec["train_loss"]).all(),
+                  f"cli {name}: resume to epoch {epochs + 1}: {rec}, "
+                  f"launches {counts}")
+            leg["resumed_train_loss"] = rec["train_loss"][-1]
+        out_dir = os.path.join(base, name + "_test")
+        os.makedirs(out_dir)
+        cwd = os.getcwd()
+        os.chdir(out_dir)            # the test CSVs land in the cwd
+        try:
+            leg["test_s"] = cli_run(
+                common + flags + ["--logdir", os.path.join(base, name + "_t"),
+                                  "--Test", "1", "--load_model_path",
+                                  os.path.join(logdir, "best_model")],
+                [], f"{name} test")
+        finally:
+            os.chdir(cwd)
+        check_test_csvs(out_dir, n_test, name)
+        leg["epochs"] = epoch_perf(logdir)
+        print(f"cli {name} on {card}: " + json.dumps(leg))
+        legs[name] = leg
+        torch.cuda.empty_cache()
+    result.update(legs)
+    print(f"cli host side on {card}: " + json.dumps(
+        {k: result[k] for k in ("tree_s", "loader_ms_per_batch",
+                                "frame_read_ms")}))
+    return result
+
+
 def phase_train_f32(init, batch):
     """One f32 training step through the flash kernels, one through the
     plain attention path and one through the split backward, from the same
@@ -1664,6 +1874,7 @@ def main(argv=None):
                          "against this one's (e.g. a git archive of the "
                          "parent)")
     args = ap.parse_args(argv)
+    t_start = time.perf_counter()
     card, sfu_rate, fmul_rate = phase_device()
     phase_build()
     flash_rows = phase_flash_kernel(sfu_rate)
@@ -1723,6 +1934,8 @@ def main(argv=None):
         {ss.KERNEL: n_scan, ss.KERNEL_BWD: n_scan})
     phase_train_mamba_f32(init, batch)
     del init, batch
+    # this slice's main path: the train CLI, MambaFuser then GPT TransFuser
+    cli = phase_cli(card)
 
     # Per forward of the serving path at batch 8 in bf16: the flash kernel's
     # 8 launches at each of the four stage shapes (dropout 0); the scan's 16
@@ -1801,12 +2014,18 @@ def main(argv=None):
          "bwd_bound_ms": summed(bwd0, "bound_ms"),
          "exp_sfu_ms": summed(fwd0, "exp_sfu_ms")}))
 
+    def cli_launches(name):
+        """A train step's launches on the train CLI's path (cli phase)."""
+        return (cli["mamba"]["launches_per_step"].get(name, 0)
+                + cli["gpt"]["launches_per_step"].get(name, 0))
+
     def entry(name, source, replaces, ms, bound, by, plain, library, err,
               **extra):
         return {"name": name, "route": "cuda",
                 "source": f"deepsense6g_tii_tpu_torch/csrc/{source}",
                 "replaces": f"deepsense6g_tii_tpu/ops/{replaces}",
                 "launches": steps.get(name, 0),
+                "cli_launches_per_step": cli_launches(name),
                 "max_abs_err": err, "ms": ms, "plain_ms": plain,
                 "bound_ms": bound, "bound_by": by, "library_ms": library,
                 **extra}
@@ -1876,6 +2095,7 @@ def main(argv=None):
                       f"{source}.cu",
             "replaces": f"deepsense6g_tii_tpu/ops/selective_scan.py:{line}",
             "launches": msteps.get(name, 0),
+            "cli_launches_per_step": cli_launches(name),
             "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
             "ms": per_forward(rows, n, "ms"),
             "plain_ms": per_forward(rows, n, "plain_ms"),
@@ -1900,6 +2120,7 @@ def main(argv=None):
         "source": "deepsense6g_tii_tpu_torch/csrc/selective_scan_seq.cu",
         "replaces": "deepsense6g_tii_tpu/ops/selective_scan.py:268",
         "launches": roofline_launches.get(ss.KERNEL_SEQ, 0),
+        "cli_launches_per_step": cli_launches(ss.KERNEL_SEQ),
         "max_abs_err": max(r["max_abs_err"] for r in seq_rows),
         **{k: per_forward(seq_main, SCAN_LAUNCHES, k)
            for k in ("ms", "plain_ms", "bound_ms")},
@@ -1917,6 +2138,7 @@ def main(argv=None):
         "source": "deepsense6g_tii_tpu_torch/csrc/scan_roofline_chain.cu",
         "replaces": "tools/scan_roofline.py:82",
         "launches": roofline_launches.get(sr.KERNEL_CHAIN, 0),
+        "cli_launches_per_step": cli_launches(sr.KERNEL_CHAIN),
         "max_abs_err": max(r["max_abs_err"] for r in chain_rows),
         **{k: sum(r[k] for r in chain_rows)
            for k in ("ms", "plain_ms", "bound_ms")},
@@ -1924,6 +2146,7 @@ def main(argv=None):
                      >= sum(r["ops_ms"] for r in chain_rows)
                      else "operations"),
         "library_ms": None})
+    print(f"chip_smoke on {card}: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

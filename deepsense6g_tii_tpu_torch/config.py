@@ -116,3 +116,27 @@ class GlobalConfig:
 
     def replace(self, **kw) -> "GlobalConfig":
         return dataclasses.replace(self, **kw)
+
+
+# Per-scenario LiDAR field-of-view bins (x_lo, x_hi, y_lo, y_hi); own copy
+# of deepsense6g_tii_tpu/config.py:189-197.
+SCENARIO_FOV: Tuple[Tuple[str, Tuple[float, float, float, float]], ...] = (
+    ("scenario31", (-70.0, 0.0, -25.0, 14.0)),
+    ("scenario32", (-60.0, 0.0, -40.0, 5.5)),
+    ("scenario33", (-50.0, 0.0, -12.0, 7.0)),
+    ("scenario34", (-50.0, 0.0, -20.0, 10.0)),
+)
+DEFAULT_FOV: Tuple[float, float, float, float] = (-50.0, 0.0, -50.0, 50.0)
+
+# Per-scenario base-station boresight offsets in degrees, the GPS min-max
+# normalisation constants and the scenario names (config.py:200-211).
+SCENARIO_ANGLE_OFFSET = {
+    "scenario31": -50.52,
+    "scenario32": 44.8,
+    "scenario33": 55.6,
+    "scenario34": -60.0,
+}
+POS_MAX = (40.20955233, 52.31386139)
+POS_MIN = (-7.18029715, -97.55563452)
+
+SCENARIOS = ("scenario31", "scenario32", "scenario33", "scenario34")

@@ -18,6 +18,7 @@ import torch
 from deepsense6g_tii_tpu.ops.flash_attention import flash_mha as jax_flash_mha
 from deepsense6g_tii_tpu_torch.ops import _build
 from deepsense6g_tii_tpu_torch.ops import flash_attention as fa
+from test_torch_modules import two_torch_threads  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -20,6 +20,7 @@ import torch
 from deepsense6g_tii_tpu.ops import flash_attention as jfa
 from deepsense6g_tii_tpu_torch.ops import _build
 from deepsense6g_tii_tpu_torch.ops import flash_attention as fa
+from test_torch_modules import two_torch_threads  # noqa: F401 (autouse)
 
 # the bounds of tests/test_flash_attention.py: f32 forward (streaming vs
 # materialised softmax) and gradients

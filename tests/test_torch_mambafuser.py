@@ -33,6 +33,7 @@ from deepsense6g_tii_tpu_torch.serve import Predictor, mambafuser_config
 from deepsense6g_tii_tpu_torch.utils.synth import make_synth_batch
 from synthetic_data import jinit
 from test_torch_modules import assert_close, port_module, randomized
+from test_torch_modules import two_torch_threads  # noqa: F401 (autouse)
 
 # the small geometry of tests/test_torch_slice.py:36-38, Mamba fusion and
 # the TimeMamba head: 26 tokens, channel thirds 21/21/22 at C = 64

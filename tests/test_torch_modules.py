@@ -33,6 +33,20 @@ from deepsense6g_tii_tpu_torch.ops import pooling, resize
 from deepsense6g_tii_tpu_torch.utils.synth import make_synth_batch
 
 
+@pytest.fixture(scope="module", autouse=True)
+def two_torch_threads():
+    """Two intra-op torch threads for a port test module, restored after.
+    The tier-1 command runs six xdist workers on the host's cores, and with
+    torch's default of one thread a core they oversubscribe it: the port's
+    test files took 441.7 s together under those flags, 110.3 s with two
+    threads a worker (8-core x86-64 host).  Every port test module imports
+    this fixture, which makes it autouse there too."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def randomized(variables, seed):
     """Perturbed params and non-trivial BN statistics: init values (ones,
     zeros, zero pos_emb) would hide mapping and layout bugs."""

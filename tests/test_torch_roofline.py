@@ -21,6 +21,7 @@ from jax.experimental import pallas as pl
 from deepsense6g_tii_tpu_torch.ops import _build
 from deepsense6g_tii_tpu_torch.tools import (bench_flash, bench_scan,
                                              scan_roofline, timing)
+from test_torch_modules import two_torch_threads  # noqa: F401 (autouse)
 
 SHAPE, BLK = (64, 8, 128), 32
 

@@ -26,6 +26,7 @@ import torch
 
 from deepsense6g_tii_tpu.ops import selective_scan as jax_ss
 from deepsense6g_tii_tpu_torch.ops import selective_scan as ss
+from test_torch_modules import two_torch_threads  # noqa: F401 (autouse)
 
 GRADS = ("du", "ddt", "dA", "dB", "dC")
 GRAD_RTOL, BF16_GRAD_RTOL = 1e-4, 2.0 ** -7

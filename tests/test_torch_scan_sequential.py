@@ -20,6 +20,7 @@ import torch
 from deepsense6g_tii_tpu.ops import selective_scan as jax_ss
 from deepsense6g_tii_tpu_torch.ops import _build
 from deepsense6g_tii_tpu_torch.ops import selective_scan as ss
+from test_torch_modules import two_torch_threads  # noqa: F401 (autouse)
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 

@@ -28,6 +28,7 @@ from deepsense6g_tii_tpu_torch.ops import _build
 from deepsense6g_tii_tpu_torch.ops import flash_attention as fa
 from deepsense6g_tii_tpu_torch.ops import selective_scan as ss
 from deepsense6g_tii_tpu_torch.tools import scan_roofline
+from test_torch_modules import two_torch_threads  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = dict(rtol=1e-4, atol=1e-4)

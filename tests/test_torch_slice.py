@@ -30,6 +30,7 @@ from deepsense6g_tii_tpu_torch.serve import Predictor
 from deepsense6g_tii_tpu_torch.utils.synth import make_synth_batch
 from synthetic_data import jinit
 from test_torch_modules import randomized
+from test_torch_modules import two_torch_threads  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PACKAGE = os.path.join(REPO, "deepsense6g_tii_tpu_torch")
@@ -195,7 +196,19 @@ def test_package_imports_with_jax_blocked():
             "deepsense6g_tii_tpu_torch.tools.timing",
             "deepsense6g_tii_tpu_torch.tools.scan_roofline",
             "deepsense6g_tii_tpu_torch.tools.bench_scan",
-            "deepsense6g_tii_tpu_torch.tools.bench_flash"} <= set(modules)
+            "deepsense6g_tii_tpu_torch.tools.bench_flash",
+            "deepsense6g_tii_tpu_torch.utils.utm",
+            "deepsense6g_tii_tpu_torch.utils.ply",
+            "deepsense6g_tii_tpu_torch.utils.image",
+            "deepsense6g_tii_tpu_torch.utils.demo_data",
+            "deepsense6g_tii_tpu_torch.utils.tb_events",
+            "deepsense6g_tii_tpu_torch.data.features",
+            "deepsense6g_tii_tpu_torch.data.dataset",
+            "deepsense6g_tii_tpu_torch.data.loader",
+            "deepsense6g_tii_tpu_torch.train.checkpoints",
+            "deepsense6g_tii_tpu_torch.train.profiling",
+            "deepsense6g_tii_tpu_torch.train.engine",
+            "deepsense6g_tii_tpu_torch.cli.train"} <= set(modules)
     code = ("import sys, importlib\n"
             "for m in ('jax', 'jaxlib', 'flax', 'deepsense6g_tii_tpu'):\n"
             "    sys.modules[m] = None\n"

@@ -35,6 +35,7 @@ from deepsense6g_tii_tpu_torch.train.state import (create_train_state,
 from deepsense6g_tii_tpu_torch.utils.synth import make_synth_batch
 from synthetic_data import jinit
 from test_torch_modules import randomized
+from test_torch_modules import two_torch_threads  # noqa: F401 (autouse)
 
 # the small geometry of tests/test_torch_slice.py, GPT fusion through the
 # flash kernels, dropout off

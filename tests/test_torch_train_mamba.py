@@ -41,6 +41,7 @@ from test_torch_train import (FLIP_SHARE, GRAD_RTOL_LEAF,
                               GRAD_RTOL_MODEL, LR, B, _assert_envelope,
                               _copy, _ema_envelope, _jax_snapshot, _leafmax,
                               _np, _params_envelope, _snapshot, _stats_tol)
+from test_torch_modules import two_torch_threads  # noqa: F401 (autouse)
 
 SMALL = dict(MAMBA_SMALL, embd_pdrop=0.0, attn_pdrop=0.0, resid_pdrop=0.0)
 INPUTS = ("image", "lidar", "radar", "gps")
