@@ -9,9 +9,14 @@ runs every kernel's plain PyTorch version on the CPU.  ``--flash_attention``
 auto means the flash kernels on the card.  ``--compute_dtype`` keeps the
 JAX default, bfloat16.
 
+``--pred_len 5 --seq_len 10 --grad_clip 3.0`` trains the 30-to-5
+multi-step variant.  ``--load_torch_checkpoint PATH`` imports a reference
+``.pth`` into the model and the EMA shadow before training, validating or
+testing (after ``--load_model_path`` or a resume, as in the JAX CLI).
+
 Flags of later slices raise ``NotImplementedError`` naming their ROADMAP.md
-item: ``--cache_dir``, ``--multihost``, ``--load_torch_checkpoint`` and
-``--pred_len`` > 1.  So do the TPU knobs the port does not take:
+item: ``--cache_dir`` and ``--multihost``.  So do the TPU knobs the port
+does not take:
 ``--merge_lidar_radar``, ``--padded_token_stream``, ``--flatten_accum``,
 ``--opt_mu_dtype bfloat16`` and ``--flash_dropout_impl hw``.  ``--remat``
 is accepted and ignored.
@@ -108,8 +113,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--multihost", type=int, default=0,
                    help="multi-GPU training (not in the port yet: raises)")
     p.add_argument("--load_torch_checkpoint", type=str, default=None,
-                   help="import a reference .pth (not in the port yet: "
-                        "raises)")
+                   help="import a reference .pth into the model")
     return p
 
 
@@ -130,10 +134,6 @@ _LATER = (
     ("cache_dir", lambda v: v is not None,
      "the pre-featurized cache (ROADMAP.md Queue 1 item 3)"),
     ("multihost", bool, "multi-GPU training (ROADMAP.md Queue 1 item 7)"),
-    ("load_torch_checkpoint", lambda v: v is not None,
-     "reading a reference .pth (ROADMAP.md Queue 1 item 2)"),
-    ("pred_len", lambda v: v > 1,
-     "the 30-to-5 multi-step decoder (ROADMAP.md Queue 1 item 6)"),
 )
 _TPU_KNOBS = (
     ("merge_lidar_radar", bool),
@@ -246,6 +246,26 @@ def main(argv=None) -> int:
         d, name = os.path.split(args.load_model_path)
         engine.load_weights(name.removesuffix(".pt"), logdir=d)
 
+    def maybe_import_torch_weights():
+        """A reference .pth into the model and the EMA shadow."""
+        if not args.load_torch_checkpoint:
+            return
+        from ..models.checkpoint_import import load_reference_checkpoint
+        from ..models.weights import from_jax_variables
+        params, stats, unused = load_reference_checkpoint(
+            args.load_torch_checkpoint, cfg)
+        if unused:
+            print(f"======WARNING: {len(unused)} unused torch keys, e.g. "
+                  f"{sorted(unused)[:3]}")
+        if engine.state is None:
+            engine.init_state()
+        engine.model.load_state_dict(from_jax_variables(
+            {"params": params, "batch_stats": stats}), strict=True)
+        with torch.no_grad():
+            for n, p in engine.model.named_parameters():
+                engine.state.ema[n].copy_(p.detach())
+        print("======imported torch checkpoint", args.load_torch_checkpoint)
+
     if args.Test:
         test_root = data_root + "/Multi_Modal_Test/"
         test_set = BeamDataset(test_root, "ml_challenge_test_multi_modal.csv",
@@ -258,6 +278,7 @@ def main(argv=None) -> int:
             load_model_path()
         elif engine.resume():
             engine.load_weights("best_model")
+        maybe_import_torch_weights()
         engine.test(loader)
         print("Test finish")
         return 0
@@ -279,6 +300,7 @@ def main(argv=None) -> int:
         engine.init_state()
         if args.load_model_path:
             load_model_path()
+        maybe_import_torch_weights()
         engine.validate(val_loader)
         print("Val finish")
         return 0
@@ -292,6 +314,7 @@ def main(argv=None) -> int:
         except FileNotFoundError:
             engine.load_weights("final_model")
 
+    maybe_import_torch_weights()
     for epoch in range(engine.cur_epoch, args.epochs):
         print("epoch:", epoch, "lr:", engine._lr())
         engine.train(train_loader)

@@ -140,3 +140,9 @@ POS_MAX = (40.20955233, 52.31386139)
 POS_MIN = (-7.18029715, -97.55563452)
 
 SCENARIOS = ("scenario31", "scenario32", "scenario33", "scenario34")
+
+
+def config_30to5(**overrides) -> GlobalConfig:
+    """The 30-to-5 multi-step variant (``deepsense6g_tii_tpu/config.py:
+    214-219``): 10 input frames, 5 predicted beams, 1922 fused tokens."""
+    return GlobalConfig(seq_len=10, pred_len=5, **overrides)

@@ -63,11 +63,18 @@ def _to_device(batch, device) -> Dict[str, torch.Tensor]:
 def compute_loss(cfg: GlobalConfig, loss_name: str, temp_coef: bool,
                  logits, batch):
     """Soft ``beam`` targets (``temp_coef``) or integer ``beamidx``, the
-    optional ``valid`` row weights, focal or cross-entropy loss.  (The
-    multi-step decoder's (B, pred_len, beams) logits are not ported:
-    ``BeamFuser`` raises for ``pred_len > 1``.)"""
+    optional ``valid`` row weights, focal or cross-entropy loss.  The
+    multi-step decoder's (B, P, C) logits and (B, P[, C]) targets are
+    flattened to B·P rows, each sample's weight repeated P times
+    (``deepsense6g_tii_tpu/train/steps.py:58-78``)."""
     target = batch["beam"] if temp_coef else batch["beamidx"]
     weight = batch.get("valid")
+    if logits.ndim == 3:
+        if weight is not None:
+            weight = weight.repeat_interleave(logits.shape[1])
+        logits = logits.reshape(-1, logits.shape[-1])
+        target = target.reshape((-1, target.shape[-1]) if temp_coef
+                                else (-1,))
     if loss_name == "focal":
         return focal_loss(logits, target, num_classes=cfg.num_beams,
                           sample_weight=weight)

@@ -21,11 +21,13 @@ from test_torch_modules import two_torch_threads  # noqa: F401 (autouse)
 
 # flags that raise NotImplementedError, with a value that triggers it
 RAISING = {
-    "cache_dir": "cache", "multihost": "1", "load_torch_checkpoint": "x.pth",
-    "pred_len": "5", "merge_lidar_radar": "1", "padded_token_stream": "1",
-    "flatten_accum": "1", "opt_mu_dtype": "bfloat16",
-    "flash_dropout_impl": "hw",
+    "cache_dir": "cache", "multihost": "1", "merge_lidar_radar": "1",
+    "padded_token_stream": "1", "flatten_accum": "1",
+    "opt_mu_dtype": "bfloat16", "flash_dropout_impl": "hw",
 }
+# flags that raised until the 30-to-5 variant and the reference import
+# were ported; runs of main with them: tests/test_torch_30to5.py
+PORTED = {"load_torch_checkpoint": "x.pth", "pred_len": "5"}
 SMALL_FLAGS = ["--seq_len", "2", "--compute_dtype", "float32",
                "--input_resolution", "64", "--vert_anchors", "2",
                "--horz_anchors", "2", "--n_layer", "1",
@@ -73,8 +75,15 @@ def test_reference_flags_accepted():
     assert cfg.compute_dtype == "bfloat16" and cfg.opt_mu_dtype is None
 
 
-@pytest.mark.parametrize("flag", sorted(RAISING))
+@pytest.mark.parametrize("flag", sorted({**RAISING, **PORTED}))
 def test_unported_flags_raise(flag, tmp_path):
+    if flag in PORTED:
+        args = cli.build_parser().parse_args([f"--{flag}", PORTED[flag]])
+        cli.check_args(args)                 # accepted now
+        cfg = cli.config_from_args(args)
+        assert (cfg.pred_len == 5 if flag == "pred_len"
+                else args.load_torch_checkpoint == "x.pth")
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         cli.main(["--device", "cpu", "--logdir", str(tmp_path / "r"),
                   f"--{flag}", RAISING[flag]])

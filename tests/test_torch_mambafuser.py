@@ -338,12 +338,17 @@ def test_serve_main_defaults_to_mambafuser(monkeypatch):
     class Stop(Exception):
         pass
 
-    def fake_beam_fuser(cfg, **kw):
+    def fake_load_predictor(path, cfg, **kw):
+        assert path == "best_model.pt" and kw["device"].type == "cuda"
         built.append(cfg)
         raise Stop
 
-    monkeypatch.setattr(serve, "BeamFuser", fake_beam_fuser)
-    for argv in ([], ["--FFM", "0", "--TFM", "0"]):
+    # main serves a checkpoint on the card: the model's config as main
+    # builds it there, before any file is read
+    monkeypatch.setattr(serve, "resolve_device", torch.device)
+    monkeypatch.setattr(serve, "load_predictor", fake_load_predictor)
+    for argv in (["best_model.pt"],
+                 ["best_model.pt", "--FFM", "0", "--TFM", "0"]):
         with pytest.raises(Stop):
             serve.main(argv)
     mf, gpt = built

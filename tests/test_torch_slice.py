@@ -141,6 +141,13 @@ def test_seeded_init_is_reproducible():
                                   dict(pred_len=5)])
 def test_unported_options_raise(knob, inputs):
     knob = dict(knob)
+    if knob.get("pred_len", 1) > 1:
+        # ported: the 30-to-5 GRU decoder (tests/test_torch_30to5.py)
+        model = BeamFuser(GlobalConfig(**{**SMALL, **knob}), device="cpu")
+        with torch.no_grad():
+            logits = model(*map(torch.from_numpy, inputs))
+        assert logits.shape == (3, knob["pred_len"], 64)
+        return
     rebuild = knob.pop("rebuild_feats", False)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         model = BeamFuser(GlobalConfig(**{**SMALL, **knob}), device="cpu")
@@ -161,7 +168,7 @@ def _port_sources():
 
 def _is_forbidden(module):
     top = module.split(".")[0]
-    return top in ("jax", "jaxlib", "flax", "deepsense6g_tii_tpu")
+    return top in ("jax", "jaxlib", "flax", "msgpack", "deepsense6g_tii_tpu")
 
 
 def test_port_sources_import_no_jax():
@@ -208,9 +215,14 @@ def test_package_imports_with_jax_blocked():
             "deepsense6g_tii_tpu_torch.train.checkpoints",
             "deepsense6g_tii_tpu_torch.train.profiling",
             "deepsense6g_tii_tpu_torch.train.engine",
-            "deepsense6g_tii_tpu_torch.cli.train"} <= set(modules)
+            "deepsense6g_tii_tpu_torch.cli.train",
+            "deepsense6g_tii_tpu_torch.models.checkpoint_import",
+            "deepsense6g_tii_tpu_torch.models.torch_port",
+            "deepsense6g_tii_tpu_torch.models.msgpack",
+            "deepsense6g_tii_tpu_torch.serve"} <= set(modules)
     code = ("import sys, importlib\n"
-            "for m in ('jax', 'jaxlib', 'flax', 'deepsense6g_tii_tpu'):\n"
+            "for m in ('jax', 'jaxlib', 'flax', 'msgpack',\n"
+            "          'deepsense6g_tii_tpu'):\n"
             "    sys.modules[m] = None\n"
             f"for m in {modules!r}:\n"
             "    importlib.import_module(m)\n")
@@ -221,7 +233,8 @@ def test_package_imports_with_jax_blocked():
 
 
 def test_entry_points_default_to_cuda():
-    for fn in (BeamFuser.__init__, Predictor.__init__):
+    for fn in (BeamFuser.__init__, Predictor.__init__,
+               Predictor.from_state_dict):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
 
 
@@ -234,5 +247,5 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         Predictor(model, cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
-        serve.main(["--batch", "1"])
+        serve.main(["best_model.pt", "--batch", "1"])
     assert next(model.parameters()).device.type == "cpu"
