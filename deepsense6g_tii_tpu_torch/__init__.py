@@ -6,12 +6,19 @@ name.  The port imports torch and numpy only, never jax, flax or the JAX
 package.  Layers:
 
   config.py   GlobalConfig (own copy)
-  data/       ImageNet normalisation
-  ops/        pooling, bilinear resize, flash attention (hand-written CUDA
-              kernel in csrc/, built with nvcc at first use)
-  models/     ResNet backbones, GPT token fusion, encoder, BeamFuser, and
-              the weight bridge from JAX variables
+  data/       features, the DeepSense dataset and loader
+  ops/        pooling, bilinear resize, flash attention and the selective
+              scan (hand-written CUDA kernels in csrc/, built with nvcc at
+              first use)
+  models/     ResNet backbones, GPT and Mamba token fusion, encoder (with
+              the modality-rebuild hook), BeamFuser, and the weight bridges
+              from JAX variables, flax msgpack and reference .pth files
+  train/      train and eval steps, engine, checkpoints
+  rebuild/    the modality-rebuild heads, losses and trainer, and the
+              video/flow/audio trainer
+  cli/        the train and rebuild CLIs
   serve.py    Predictor: batch buckets, top-k beams, latency benchmark
+  tools/      kernel benchmarks and the roofline calibration
 
 Entry points run on the GPU (``device="cuda"``) and raise when CUDA is
 absent unless the caller asks for ``device="cpu"``.

@@ -17,8 +17,19 @@ are pooled and then cast to f32.
 ``modality_missing`` replaces a modality's input after normalisation with
 zeros (``zerolike``) or uniform [0, 1) noise (``randlike``) drawn from the
 ``generator`` the caller passes to ``forward``; JAX's random bits cannot be
-matched.  Not in the port (they raise): the rebuild-feature hook and the
-merged lidar/radar backbones.
+matched.
+
+The modality-rebuild hook (``encoder.py:173-191`` of the JAX package):
+``rebuild_feats``, (B·T, h, w, 64) features that the rebuild heads
+synthesised, replace the stage-1 features of ``modality_missing`` before
+the first fusion stage: always in eval mode, and in train mode (``image``
+only) on a Bernoulli(0.25) draw per call from ``rebuild_generator``.
+``return_stage1`` also returns the three stage-1 maps after that
+injection.  :meth:`FusionEncoder.encode_stage1` computes the stage-1 maps
+alone (normalise, stem, stage1; no missing-modality substitution), the
+rebuild subsystem's tap: JAX's ``encode_stage1`` runs the whole encoder and
+XLA drops the fusion stages that nothing reads, which eager PyTorch would
+run.  Not in the port (they raise): the merged lidar/radar backbones.
 """
 
 from __future__ import annotations
@@ -124,33 +135,79 @@ class FusionEncoder(nn.Module):
                                       dtype=x.dtype, device=x.device))
         return out
 
+    def _streams(self, image, lidar, radar):
+        """The three inputs as f32, the image normalised."""
+        return (normalize_imagenet(image.float()), lidar.float(),
+                radar.float())
+
+    def _stage1(self, streams, backbones):
+        """Flatten (B, T) and cast each stream, then stem and stage1."""
+        return [bb.stage1(bb.stem(_flatten_bt(x).to(self.dtype)))
+                for bb, x in zip(backbones, streams)]
+
+    def encode_stage1(self, image, lidar, radar, backbones=None):
+        """The three stage-1 maps, image, lidar, radar, each (B·T, h, w,
+        64) in the compute dtype, without the missing-modality substitution
+        and without running any fusion stage.  ``backbones`` (three modules
+        with ``stem`` and ``stage1``; default the encoder's own) lets the
+        rebuild trainer tap its frozen copies."""
+        if backbones is None:
+            backbones = (self.image_encoder, self.lidar_encoder,
+                         self.radar_encoder)
+        return self._stage1(self._streams(image, lidar, radar), backbones)
+
+    def _inject_rebuild(self, feats, rebuild, generator):
+        """``rebuild`` in place of ``modality_missing``'s stage-1 features:
+        always in eval mode; in train mode for ``image`` only, with
+        probability 0.25 per call (one draw from ``generator``)."""
+        miss = self.config.modality_missing
+        if rebuild is None or miss not in ("image", "lidar", "radar"):
+            return feats
+        i = ("image", "lidar", "radar").index(miss)
+        if self.training and miss == "image":
+            if generator is None:
+                raise ValueError("rebuild_feats in train mode draw whether "
+                                 "to inject from rebuild_generator: pass it")
+            if not bool(torch.rand((), generator=generator,
+                                   device=generator.device) < 0.25):
+                return feats
+        feats = list(feats)
+        feats[i] = rebuild.to(feats[i].dtype)
+        return feats
+
     def forward(self, image, lidar, radar, gps, rebuild_feats=None,
+                return_stage1: bool = False, apply_missing: bool = True,
                 generator: Optional[torch.Generator] = None,
-                rng: Optional[DropoutRNG] = None):
+                rng: Optional[DropoutRNG] = None,
+                rebuild_generator: Optional[torch.Generator] = None):
         """image: (B, T, H, W, 3) in [0, 255]; lidar: (B, T, H, W, 1);
         radar: (B, T, H, W, 1|2); gps: (B, gps_len, 2).  Returns the (B, 512)
-        fused features in f32.  ``generator`` feeds
-        ``modality_missing_type="randlike"``; ``rng`` the fusion stages'
-        dropout in train mode (BatchNorm follows ``self.training`` too)."""
-        if rebuild_feats is not None:
-            raise NotImplementedError(
-                "rebuild_feats (the modality-rebuild hook) is not in the "
-                "PyTorch port yet (ROADMAP.md Queue 1 item 9)")
-        cfg, dtype = self.config, self.dtype
+        fused features in f32, and with ``return_stage1`` also the three
+        stage-1 maps after the rebuild injection.  ``generator`` feeds
+        ``modality_missing_type="randlike"`` (skipped when ``apply_missing``
+        is false); ``rng`` the fusion stages' dropout in train mode
+        (BatchNorm follows ``self.training`` too).  ``rebuild_feats``
+        ((B·T, h, w, 64)) replace the missing modality's stage-1 features;
+        ``rebuild_generator`` (a CPU generator, so that the draw never waits
+        for the card) decides the train-mode injection (JAX's
+        ``make_rng("rebuild")``)."""
+        cfg = self.config
         B = image.shape[0]
-        streams = self._apply_missing(
-            (normalize_imagenet(image.float()), lidar.float(), radar.float()),
-            generator)
-        streams = [_flatten_bt(x).to(dtype) for x in streams]
+        streams = self._streams(image, lidar, radar)
+        if apply_missing:
+            streams = self._apply_missing(streams, generator)
         backbones = (self.image_encoder, self.lidar_encoder,
                      self.radar_encoder)
-        feats = [bb.stage1(bb.stem(x)) for bb, x in zip(backbones, streams)]
+        feats = self._inject_rebuild(self._stage1(streams, backbones),
+                                     rebuild_feats, rebuild_generator)
+        stage1_feats = feats
 
         gps_feats = gps.float()
         for i in range(4):
             anchors = [_unflatten_bt(adaptive_avg_pool(
                 f, cfg.vert_anchors, cfg.horz_anchors), B) for f in feats]
-            gps_emb = getattr(self, f"vel_emb{i + 1}")(gps_feats).to(dtype)
+            gps_emb = getattr(self, f"vel_emb{i + 1}")(gps_feats).to(
+                self.dtype)
             *outs, gps_feats = getattr(self, f"fusion{i + 1}")(
                 *anchors, gps_emb, rng=rng)
             gps_feats = gps_feats.float()
@@ -163,5 +220,9 @@ class FusionEncoder(nn.Module):
 
         tracks = [_unflatten_bt(global_avg_pool(f), B).float() for f in feats]
         if cfg.TFM:
-            return self.time_mamba(*tracks, gps_feats)
-        return sum(t.sum(dim=1) for t in tracks) + gps_feats.sum(dim=1)
+            fused = self.time_mamba(*tracks, gps_feats)
+        else:
+            fused = sum(t.sum(dim=1) for t in tracks) + gps_feats.sum(dim=1)
+        if return_stage1:
+            return fused, stage1_feats
+        return fused

@@ -106,13 +106,16 @@ class BeamFuser(nn.Module):
         init_weights(self, generator)
         self.to(dev).eval()
 
-    def forward(self, image, lidar, radar, gps,
+    def forward(self, image, lidar, radar, gps, rebuild_feats=None,
                 generator: Optional[torch.Generator] = None,
                 dropout_generator: Optional[torch.Generator] = None,
-                seed_generator: Optional[torch.Generator] = None):
+                seed_generator: Optional[torch.Generator] = None,
+                rebuild_generator: Optional[torch.Generator] = None):
         """NHWC sensor tensors -> (B, num_beams) f32 logits, or (B,
         pred_len, num_beams) when ``pred_len > 1``.  ``generator``
-        feeds ``modality_missing_type="randlike"`` (models/encoder.py).
+        feeds ``modality_missing_type="randlike"``; ``rebuild_feats`` and
+        ``rebuild_generator`` (on the CPU) the modality-rebuild hook
+        (models/encoder.py).
 
         In train mode with any dropout rate > 0, ``dropout_generator`` (on
         the model's device: elementwise masks) and ``seed_generator`` (on
@@ -126,8 +129,9 @@ class BeamFuser(nn.Module):
                     "dropout_generator (on the model's device) and "
                     "seed_generator (on the CPU): pass both")
             rng = DropoutRNG(dropout_generator, seed_generator)
-        z = self.encoder(image, lidar, radar, gps, generator=generator,
-                         rng=rng).float()
+        z = self.encoder(image, lidar, radar, gps,
+                         rebuild_feats=rebuild_feats, generator=generator,
+                         rng=rng, rebuild_generator=rebuild_generator).float()
         z = torch.relu(self.join_fc1(z))
         z = torch.relu(self.join_fc2(z))
         z = self.join_fc3(z)
@@ -147,3 +151,13 @@ class BeamFuser(nn.Module):
             x = x + self.output(h)
             outs.append(x)
         return torch.stack(outs, dim=1)
+
+    def encode_stage1(self, image, lidar, radar, backbones=None):
+        """The stage-1 per-modality features for the rebuild subsystem
+        (``deepsense6g_tii_tpu/models/fuser.py:76-83``): the image, lidar
+        and radar maps, (B·T, h, w, 64) each, in BatchNorm's current mode,
+        without the missing-modality substitution (the rebuild trainer needs
+        the real target features as its translation label).  Unlike JAX's,
+        it returns the maps alone and runs no fusion stage
+        (``FusionEncoder.encode_stage1``)."""
+        return self.encoder.encode_stage1(image, lidar, radar, backbones)

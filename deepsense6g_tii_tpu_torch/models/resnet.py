@@ -50,19 +50,23 @@ class BatchNorm(nn.Module):
     (channel) axis, in f32, output in the input dtype.
 
     Eval mode uses the running statistics.  Train mode follows flax's
-    ``BatchNorm(use_running_average=False, momentum=0.9,
-    use_fast_variance=True)``: it normalises with the batch mean and the
-    biased variance mean(x²) − mean(x)² (floored at 0) over (N, H, W),
-    computed in f32, and updates ``running_mean`` and ``running_var`` in
-    place with momentum 0.9 and that same biased variance.  The reference
+    ``BatchNorm(use_running_average=False, use_fast_variance=True)``: it
+    normalises with the batch mean and the biased variance mean(x²) −
+    mean(x)² (floored at 0) over every axis but the last ((N, H, W), or
+    (N, S) for the rebuild heads), computed in f32, and updates
+    ``running_mean`` and ``running_var`` in place with ``momentum`` (new =
+    momentum·running + (1 − momentum)·batch) and that same biased variance.
+    The backbones keep the JAX package's 0.9; flax's own default, 0.99, is
+    what the rebuild heads take (``rebuild/heads.py``).  The reference
     (torch ``BatchNorm2d``) folds the unbiased variance N/(N-1)·var into
     ``running_var`` instead: a relative drift of about 1/N per update
     (N = B·T·H·W, at least ~160k at full width), a deviation the JAX
     package accepts (its ``resnet.py:24-27``) and the port keeps, so that
     the port and the JAX package agree."""
 
-    def __init__(self, channels: int):
+    def __init__(self, channels: int, momentum: float = BN_MOMENTUM):
         super().__init__()
+        self.momentum = momentum
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
@@ -77,10 +81,10 @@ class BatchNorm(nn.Module):
             mean = xf.mean(dim=axes)
             var = ((xf * xf).mean(dim=axes) - mean * mean).clamp(min=0.0)
             with torch.no_grad():
-                self.running_mean.copy_(BN_MOMENTUM * self.running_mean
-                                        + (1.0 - BN_MOMENTUM) * mean)
-                self.running_var.copy_(BN_MOMENTUM * self.running_var
-                                       + (1.0 - BN_MOMENTUM) * var)
+                m = self.momentum
+                self.running_mean.copy_(m * self.running_mean
+                                        + (1.0 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
         mul = torch.rsqrt(var + BN_EPS) * self.weight
         return ((xf - mean) * mul + self.bias).to(x.dtype)
 

@@ -17,7 +17,11 @@ The port's module names follow the flax scope names
   (d, n), D                       -> the same names, unchanged
 
 The GRU decoder of the 30-to-5 variant (``decoder.ir/iz/in/hr/hz/hn``)
-and its ``output`` head are Dense layers, mapped as such.  Any other leaf
+and its ``output`` head are Dense layers, mapped as such.  So are the
+modality-rebuild heads (``rebuild/trainer.py::RebuildHeads``: Dense
+``fc1..3`` and BatchNorm ``bn1``, ``bn2`` under ``{image,lidar,radar}_
+projection_l1`` and ``feat_trans_l1``): a JAX ``RebuildHeads`` tree, or one
+head's, goes through the same two functions.  Any other leaf
 raises ``KeyError``.  ``to_jax_variables`` is the inverse map: a port
 state_dict (a trained ``.pt`` file) becomes the flax-shaped tree that
 ``models/checkpoint_import.py::export_reference_checkpoint`` writes out
@@ -63,8 +67,8 @@ def _f32(val) -> np.ndarray:
 
 def from_jax_variables(variables: Mapping) -> Dict[str, torch.Tensor]:
     """JAX ``{"params": ..., "batch_stats": ...}`` as nested dicts of numpy
-    arrays (or tensors) -> the port ``BeamFuser``'s state_dict (f32, CPU),
-    loadable with ``load_state_dict(strict=True)``."""
+    arrays (or tensors) -> the port ``BeamFuser``'s (or ``RebuildHeads``')
+    state_dict (f32, CPU), loadable with ``load_state_dict(strict=True)``."""
     sd: Dict[str, torch.Tensor] = {}
 
     def walk(tree: Mapping, prefix: str, stats: bool) -> None:

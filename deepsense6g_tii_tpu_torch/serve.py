@@ -61,29 +61,18 @@ class Predictor:
         return cls(model, config, device=device, **kw)
 
     @classmethod
-    def from_checkpoint(cls, path: str, config: GlobalConfig, **kw
-                        ) -> "Predictor":
-        """The port's own ``.pt`` (``train/checkpoints.py::save_model``)."""
-        sd = torch.load(path, map_location="cpu", weights_only=True)
-        return cls.from_state_dict(sd, config, **kw)
+    def from_file(cls, path: str, config: GlobalConfig, **kw
+                  ) -> "Predictor":
+        """A checkpoint file, read by its suffix (:func:`read_state_dict`):
+        the port's ``.pt`` (``train/checkpoints.py::save_model``), a JAX
+        ``.msgpack`` (read without flax or msgpack) or a reference ``.pth``
+        (DataParallel naming; keys the model does not use are ignored, as
+        the JAX package does)."""
+        return cls.from_state_dict(read_state_dict(path, config), config,
+                                   **kw)
 
-    @classmethod
-    def from_msgpack(cls, path: str, config: GlobalConfig, **kw
-                     ) -> "Predictor":
-        """A JAX package checkpoint (``flax.serialization.to_bytes`` of
-        ``{"params", "batch_stats"}``), read without flax or msgpack."""
-        return cls.from_state_dict(
-            from_jax_variables(read_flax_msgpack(path)), config, **kw)
-
-    @classmethod
-    def from_torch(cls, path: str, config: GlobalConfig, **kw
-                   ) -> "Predictor":
-        """A reference ``.pth`` (DataParallel naming); keys the model does
-        not use are ignored, as the JAX package does."""
-        params, stats, _ = load_reference_checkpoint(path, config)
-        return cls.from_state_dict(
-            from_jax_variables({"params": params, "batch_stats": stats}),
-            config, **kw)
+    # the JAX package's constructor names, one for each format
+    from_checkpoint = from_msgpack = from_torch = from_file
 
     # -- inference ---------------------------------------------------------
 
@@ -184,14 +173,24 @@ def serving_config(FFM: int, TFM: int, add_velocity: int,
                         compute_dtype="float32")
 
 
+def read_state_dict(path: str, config: GlobalConfig
+                    ) -> Dict[str, torch.Tensor]:
+    """A ``BeamFuser`` checkpoint file as the port's state_dict (CPU), by
+    its suffix: the port's ``.pt``, a JAX ``.msgpack`` or a reference
+    ``.pth`` (read for ``config``'s model)."""
+    if path.endswith(".pt"):
+        return torch.load(path, map_location="cpu", weights_only=True)
+    if path.endswith(".msgpack"):
+        return from_jax_variables(read_flax_msgpack(path))
+    if path.endswith(".pth"):
+        params, stats, _ = load_reference_checkpoint(path, config)
+        return from_jax_variables({"params": params, "batch_stats": stats})
+    raise ValueError(f"{path}: expected a .pt, .msgpack or .pth checkpoint")
+
+
 def load_predictor(path: str, config: GlobalConfig, **kw) -> Predictor:
     """A ``Predictor`` for a checkpoint file, chosen by its suffix."""
-    for suffix, make in ((".pt", Predictor.from_checkpoint),
-                         (".msgpack", Predictor.from_msgpack),
-                         (".pth", Predictor.from_torch)):
-        if path.endswith(suffix):
-            return make(path, config, **kw)
-    raise ValueError(f"{path}: expected a .pt, .msgpack or .pth checkpoint")
+    return Predictor.from_file(path, config, **kw)
 
 
 def main(argv=None) -> int:

@@ -42,7 +42,8 @@ from .scheduler import cyclic_cosine_decay_lr
 from .state import TrainState, create_train_state
 from .steps import make_eval_step, make_train_step
 
-DEVICE_KEYS = ("image", "lidar", "radar", "gps", "beam", "beamidx")
+DEVICE_KEYS = ("image", "lidar", "radar", "gps", "beam", "beamidx",
+               "rebuild_feats")
 
 
 @dataclasses.dataclass

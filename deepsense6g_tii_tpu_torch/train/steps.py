@@ -8,10 +8,14 @@ microbatch i draw from generators seeded by
 ``numpy.random.SeedSequence([rng_seed, s, i]).generate_state(3)``: the
 first word seeds the dropout generator on the model's device (elementwise
 masks), the second a CPU generator for the attention kernels' int32 seeds,
-the third the device generator of ``modality_missing_type="randlike"``.  A
-run is therefore reproducible from ``rng_seed``, and no draw touches
-torch's global RNG.  (The JAX package folds the step into a PRNGKey; its
-bits cannot be matched, so a comparison with it runs at dropout 0.)
+the third the device generator of ``modality_missing_type="randlike"``.
+A batch with ``rebuild_feats`` (the modality-rebuild hook, (B·T, h, w,
+64)) also draws the train-mode injection from a CPU generator seeded by
+the fourth word of ``SeedSequence([rng_seed, s + 2, i])``, as the JAX step
+folds ``s + 2`` into its ``rebuild`` key.  A run is therefore
+reproducible from ``rng_seed``, and no draw touches torch's global RNG.
+(The JAX package folds the step into a PRNGKey; its bits cannot be
+matched, so a comparison with it runs at dropout 0.)
 
 Run as a script, it trains a full-width model (random weights, seed 0)
 on one fixed synthetic batch on the GPU and prints one JSON line: the loss
@@ -41,7 +45,7 @@ from .losses import cross_entropy_loss, focal_loss
 from .state import TrainState, set_learning_rate
 
 _INPUTS = ("image", "lidar", "radar", "gps")
-_TENSORS = _INPUTS + ("beam", "beamidx", "valid")
+_TENSORS = _INPUTS + ("beam", "beamidx", "valid", "rebuild_feats")
 
 
 def _to_device(batch, device) -> Dict[str, torch.Tensor]:
@@ -89,12 +93,23 @@ class _Generators:
         self.dropout = torch.Generator(device=device).manual_seed(int(s[0]))
         self.seeds = torch.Generator().manual_seed(int(s[1]))
         self.missing = torch.Generator(device=device).manual_seed(int(s[2]))
+        r = np.random.SeedSequence([rng_seed, step + 2, micro])
+        self.rebuild = torch.Generator().manual_seed(
+            int(r.generate_state(4)[3]))
 
 
 def _missing_generator(cfg, gens):
     randlike = (cfg.modality_missing is not None
                 and cfg.modality_missing_type == "randlike")
     return gens.missing if randlike else None
+
+
+def _rows(x, key: str, n: int, i: int, K: int):
+    """Microbatch ``i`` of ``K`` of a batch entry: rows [i::K] of the n
+    samples; ``rebuild_feats`` holds T rows a sample, taken together."""
+    if key != "rebuild_feats":
+        return x[i::K]
+    return x.reshape(n, -1, *x.shape[1:])[i::K].flatten(0, 1)
 
 
 def make_train_step(model, cfg: GlobalConfig, state: TrainState,
@@ -106,7 +121,8 @@ def make_train_step(model, cfg: GlobalConfig, state: TrainState,
     """Returns ``step(batch, lr) -> {"loss", "ranks"}``, which updates
     ``state`` (the model's weights and BatchNorm statistics, AdamW, the EMA
     shadow and the step) in place.  ``batch`` holds numpy arrays or tensors
-    (``image``, ``lidar``, ``radar``, ``gps``, ``beam`` or ``beamidx``);
+    (``image``, ``lidar``, ``radar``, ``gps``, ``beam`` or ``beamidx``,
+    and optionally ``rebuild_feats`` for the encoder's rebuild hook);
     ``loss`` is a 0-d tensor and ``ranks`` the (B, num_beams) beam indices
     by descending logit, both on the device.  A ``valid`` row mask (the JAX
     engine's padded batches, which also mask BatchNorm's statistics) is not
@@ -130,7 +146,9 @@ def make_train_step(model, cfg: GlobalConfig, state: TrainState,
     def forward_loss(mb, micro):
         gens = _Generators(rng_seed, state.step, micro, dev)
         logits = model(*(mb[k] for k in _INPUTS),
+                       rebuild_feats=mb.get("rebuild_feats"),
                        generator=_missing_generator(cfg, gens),
+                       rebuild_generator=gens.rebuild,
                        dropout_generator=gens.dropout,
                        seed_generator=gens.seeds)
         return logits, compute_loss(cfg, loss_name, temp_coef, logits, mb)
@@ -155,8 +173,8 @@ def make_train_step(model, cfg: GlobalConfig, state: TrainState,
                                  f"to split evenly")
             lsum, micro_logits = 0.0, []
             for i in range(K):
-                lg, loss_i = forward_loss({k: v[i::K] for k, v in b.items()},
-                                          i)
+                lg, loss_i = forward_loss(
+                    {k: _rows(v, k, n, i, K) for k, v in b.items()}, i)
                 loss_i.backward()          # p.grad sums the K gradients
                 lsum = lsum + loss_i.detach()
                 micro_logits.append(lg.detach())
@@ -207,7 +225,8 @@ def make_eval_step(model, cfg: GlobalConfig, state: TrainState,
         b = _to_device(batch, dev)
         gens = _Generators(rng_seed, state.step, 1 + batch_idx, dev)
         args = tuple(b[k] for k in _INPUTS)
-        kwargs = dict(generator=_missing_generator(cfg, gens))
+        kwargs = dict(generator=_missing_generator(cfg, gens),
+                      rebuild_feats=b.get("rebuild_feats"))
         if use_ema:
             logits = torch.func.functional_call(model, state.ema, args,
                                                 kwargs)

@@ -148,12 +148,19 @@ def test_unported_options_raise(knob, inputs):
             logits = model(*map(torch.from_numpy, inputs))
         assert logits.shape == (3, knob["pred_len"], 64)
         return
-    rebuild = knob.pop("rebuild_feats", False)
+    if knob.get("rebuild_feats"):
+        # ported: the modality-rebuild hook (tests/test_torch_rebuild.py)
+        model = BeamFuser(GlobalConfig(**{**SMALL, "modality_missing":
+                                          "image"}), device="cpu")
+        rebuild = torch.zeros(6, 16, 16, 64)
+        with torch.no_grad():
+            _, maps = model.encoder(*map(torch.from_numpy, inputs),
+                                    rebuild_feats=rebuild,
+                                    return_stage1=True)
+        assert torch.equal(maps[0], rebuild)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model = BeamFuser(GlobalConfig(**{**SMALL, **knob}), device="cpu")
-        if rebuild:
-            x = tuple(map(torch.from_numpy, inputs))
-            model.encoder(*x, rebuild_feats=torch.zeros(6, 16, 16, 64))
+        BeamFuser(GlobalConfig(**{**SMALL, **knob}), device="cpu")
 
 
 # -- import and device rules ---------------------------------------------------
