@@ -12,8 +12,9 @@ Phases, in order; any failure exits non-zero and prints no result:
 2. build    compiles every CUDA kernel of the port from csrc/ with nvcc
             (one process per source, all started together), prints ptxas's
             registers and spills, and checks the SASS (cuobjdump -sass):
-            every head-dim instantiation of the bf16 flash forward and
-            merged backward holds tensor-core instructions (HMMA/HGMMA).
+            every head-dim instantiation of the bf16 flash forward, merged
+            backward and split pair (dq, dk/dv) holds tensor-core
+            instructions (HMMA/HGMMA).
 3. kernels  holds each kernel against its plain PyTorch version at the
             shapes of the serving and training paths, in f32 and bf16, and
             times the kernel, the plain version and the one PyTorch call
@@ -24,7 +25,9 @@ Phases, in order; any failure exits non-zero and prints no result:
             - the dropout mask export, equal element for element to the
               plain stream for four seeds;
             - flash backward, merged and split, dropout 0 and 0.1, against
-              the plain backward and against each other;
+              the plain backward and against each other, two split calls
+              equal bit for bit; the split pair's dq and dk/dv kernels
+              each timed alone;
             - the bf16 flash forward and merged backward at batch 1 (T =
               962) and at T = 70 and 1, every head dim;
             - the selective scan forward in both directions (its split
@@ -71,7 +74,13 @@ Phases, in order; any failure exits non-zero and prints no result:
             p50/p90, samples/s, peak memory and one profiled step.  Then the
             same weights in f32 take one step through the kernels and one
             through the plain attention path, at dropouts 0.1 and 0, and the
-            losses, gradients and new BatchNorm statistics must agree.
+            losses, gradients and new BatchNorm statistics must agree.  Then
+            the bf16 step through the split backward (DEEPSENSE_FLASH_BWD=
+            split) from the same weights for 5 steps: every step launches
+            exactly 32 flash forwards, 32 dq and 32 dk/dv kernels and no
+            merged backward; the first loss equal to the merged leg's, each
+            later one within TRAIN_SPLIT_FALL_RTOL of the merged leg's fall;
+            its step p50 beside the merged leg's.
 7. mamba train  the same for the full-width MambaFuser, the main path of
             the selective-scan backward: every step launches exactly 67
             scan forwards and 67 scan backwards and nothing else.  Then the
@@ -118,10 +127,11 @@ Phases, in order; any failure exits non-zero and prints no result:
             (information only: the port's msgpack reader needs none).
 11. 30to5   the 30-to-5 variant (config_30to5: 10 frames, 5 predicted
             beams, 1922 tokens), full width, bf16, as phases 4-7 run the
-            5-frame models.  First kernels #1, #2, #6 and #9 at its shapes
-            (T = L = 1922 and L = 10), held against their plain versions
-            in f32 and bf16 and timed beside their bounds in bf16; their
-            sums join the kernels line's rows 1, 2, 6 and 9 (per_*_30to5),
+            5-frame models.  First kernels #1, #2 (and the split pair #3,
+            #4), #6 and #9 at its shapes (T = L = 1922 and L = 10), held
+            against their plain versions in f32 and bf16 and timed beside
+            their bounds in bf16; their sums join the kernels line's rows
+            1-4, 6 and 9 (per_*_30to5),
             and every row gives its launches on this path
             (launches_30to5).  Then both models served at buckets (1, 8)
             ((B, 5, 3) beams, the first step's top-3 confidences; 32 flash
@@ -152,11 +162,11 @@ Phases, in order; any failure exits non-zero and prints no result:
             --Val 1 --load_model_dir with a finite DBA.  The VFA trainer 10
             steps at the reference widths (2304, 2048, 512): the loss falls.
 
-With --parent PATH, after the last phase, the flash forward and merged
-backward of the checkout at PATH are timed against this one's, per GPT
-training step, and its scan forward and backward per MambaFuser step and
-serving forward, in turns on this card (their numbers join the kernels
-line's rows 1, 2, 6 and 9).  The line before the last is a JSON object with one
+With --parent PATH, after the last phase, the flash forward, merged
+backward, split backward and each split kernel alone of the checkout at
+PATH are timed against this one's, per GPT training step, and its scan
+forward and backward per MambaFuser step and serving forward, in turns on
+this card (their numbers join the kernels line's rows 1-4, 6 and 9).  The line before the last is a JSON object with one
 entry per kernel; the last line is {"ok": true, "device": {...}}.  TF32 is switched off for
 matmuls and convolutions, so the f32 comparisons are exact f32 on both
 sides; the bf16 serving path is unaffected by it.
@@ -284,6 +294,24 @@ TRAIN_STATS_RTOL = 1e-5     # per statistic tensor, of its largest value
 TRAIN_GRAD_RTOL = 1e-2      # all gradients, of their norm
 TRAIN_GRAD_TENSOR_RTOL = 0.1    # per tensor, of its largest |g|
 TRAIN_SPLIT_RTOL = 1e-4     # merged against split backward, of the norm
+# the bf16 GPT training leg through the split backward (SPLIT_STEPS steps)
+# against the merged leg, step by step.  Both start from the same weights,
+# batch and generators and run the same forward kernels, so their first
+# losses are one computation: held equal.  The two backwards compute the
+# same gradients but round dq apart (its f32 sums run in another order,
+# within BWD_RTOL; two runs of the merged kernel, whose atomics sum dq in
+# another order each run, differ the same way), and from the first update
+# on, bf16 training carries such last-bit differences forward: the two
+# losses drift apart by a share of how far training has moved the loss.
+# Each later step's gap is held to TRAIN_SPLIT_FALL_RTOL of the merged
+# leg's fall since its first step (measured up to 1.0% of the fall, 1.9%
+# of the loss, at 5 steps; PERF.md).  The check shows that the leg
+# trains as the merged one does; it cannot tell a wrong attention gradient
+# (zeroing dq moved the small model's losses by < 0.5% of their fall over 5
+# steps): the kernel checks (BWD_RTOL) and the f32 step (TRAIN_SPLIT_RTOL)
+# hold the gradients themselves.
+SPLIT_STEPS = 5
+TRAIN_SPLIT_FALL_RTOL = 0.1
 ATTN_F64_RTOL = 1e-5        # attention kernels against f64, of max |ref|
 # the cli phase's demo tree: the DeepSense camera's 960x540 frames (so the
 # reader's resize to 256 runs), 5 frames a sample, and per scenario (2 a
@@ -424,17 +452,57 @@ def phase_build():
     logs = _build.build(kernels)
     print(f"build: {kernels} in {time.perf_counter() - t0:.1f} s")
     for name, log in logs.items():
-        regs = [ln.split(":", 1)[1].strip() for ln in log.splitlines()
-                if "Used" in ln and "registers" in ln]
-        spills = sorted({ln.strip() for ln in log.splitlines()
-                         if "spill" in ln})
-        print(f"  {name} ptxas: {regs}; {spills}")
+        print(f"  {name} ptxas (registers, spill stores, spill loads) a "
+              f"kernel: {json.dumps(ptxas_usage(log))}")
     for name in kernels:
         _build.load(name)
     chain_sass(_build.library_path(scan_roofline.LIBRARY))
     flash_sass({lib: _build.library_path(lib)
                 for lib in (flash_attention.KERNEL,
                             flash_attention.BWD_LIBRARY)})
+
+
+def ptxas_usage(log):
+    """{kernel: [registers, spill store bytes, spill load bytes]} from
+    nvcc's -Xptxas -v output, each kernel by its name and template
+    arguments (kernel_label)."""
+    import re
+    usage, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(\w+)'?", ln)
+        if m:
+            name = kernel_label(m.group(1))
+            usage.setdefault(name, [None, 0, 0])
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m and name:
+            usage[name][1:] = [int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            usage[name][0] = int(m.group(1))
+    return usage
+
+
+def kernel_label(mangled):
+    """``name<args>`` of a mangled kernel name, its namespaces dropped and
+    its integer, bool, float and bf16 template arguments kept, e.g.
+    flash_bwd_dq_mma_kernel<64>."""
+    import re
+    pos = 3 if mangled.startswith("_ZN") else 2
+    name = None
+    while (m := re.match(r"\d+", mangled[pos:])):
+        n = int(m.group(0))
+        name = mangled[pos + m.end():pos + m.end() + n]
+        pos += m.end() + n
+    if not mangled.startswith("_Z") or name is None:
+        return mangled
+    rest = mangled[pos:]
+    tpl = rest.split("EE")[0] + "E" if rest.startswith("I") else ""
+    args = [a or b or c for a, b, c in re.findall(
+        r"L[ib](\d+)E|__nv_(bfloat16)|(?<=I)(f)(?=L)", tpl)]
+    return name + (f"<{', '.join(args)}>" if args else "")
 
 
 def sass_functions(library):
@@ -449,22 +517,27 @@ def sass_functions(library):
             for fn in re.split(r"\n\s*Function : ", sass)[1:]}
 
 
+FLASH_MMA_KERNELS = ("fwd", "bwd", "bwd_dq", "bwd_dkv")
+
+
 def flash_sass(libraries):
-    """The bf16 flash forward and merged backward run on the tensor
-    cores: each head-dim instantiation of flash_fwd_mma_kernel and
-    flash_bwd_mma_kernel holds HMMA (mma.sync) or HGMMA (wgmma)
+    """The bf16 flash forward, merged backward and the split pair run on
+    the tensor cores: each head-dim instantiation of flash_fwd_mma_kernel,
+    flash_bwd_mma_kernel, flash_bwd_dq_mma_kernel and
+    flash_bwd_dkv_mma_kernel holds HMMA (mma.sync) or HGMMA (wgmma)
     instructions."""
     import re
     found = {}
     for lib, path in libraries.items():
         for name, text in sass_functions(path).items():
-            m = re.search(r"flash_(fwd|bwd)_mma_kernelILi(\d+)E", name)
+            m = re.search(r"flash_(fwd|bwd|bwd_dq|bwd_dkv)_mma_kernelILi(\d+)E",
+                          name)
             if m:
                 found[f"{m.group(1)} d={m.group(2)}"] = (
                     len(re.findall(r"\bHMMA\b", text)),
                     len(re.findall(r"\bHGMMA\b", text)))
     print(f"flash bf16 SASS (HMMA, HGMMA) a kernel: {found}")
-    want = {f"{kind} d={d}" for kind in ("fwd", "bwd") for d in HEAD_DIMS}
+    want = {f"{kind} d={d}" for kind in FLASH_MMA_KERNELS for d in HEAD_DIMS}
     check(set(found) == want and all(sum(c) > 0 for c in found.values()),
           f"flash SASS: expected HMMA or HGMMA in each of {sorted(want)}, "
           f"got {found}")
@@ -603,8 +676,10 @@ def phase_mask():
 
 def phase_flash_bwd(sfu_rate):
     """Merged and split backward against the plain backward and each other,
-    at the training path's shapes, dropout 0 and 0.1; timed with the plain
-    version and SDPA's backward (dropout 0) beside the bound."""
+    at the training path's shapes, dropout 0 and 0.1, and a second split
+    call equal to the first bit for bit; timed with the plain version and
+    SDPA's backward (dropout 0) beside the bound, and the split pair's dq
+    and dk/dv kernels each alone by CUDA events."""
     import torch
     import torch.nn.functional as F
     from deepsense6g_tii_tpu_torch.ops import flash_attention as fa
@@ -643,6 +718,14 @@ def phase_flash_bwd(sfu_rate):
                           f"flash backward {dname} d={d} p={p} {what}: max "
                           f"|d(q,k,v) err| {errs} of max |plain| {scale} "
                           f"(rtol {BWD_RTOL[dname]})")
+                # the split pair has no atomics: the same bits every call
+                again = fa.flash_mha_bwd(q, k, v, o, lse, do, mode="split",
+                                         **kw)
+                check(all(torch.equal(a, b)
+                          for a, b in zip(got["split"], again)),
+                      f"flash backward {dname} d={d} p={p}: two split calls "
+                      f"differ")
+                del again
                 esize = q.element_size()
                 n_el = bh * TOKENS * d
                 # q, k, v, o, dO, lse, dvec in; dq, dk, dv out
@@ -676,7 +759,7 @@ def phase_flash_bwd(sfu_rate):
                     dkv_bound_ms=bounds["dkv"][0],
                     dkv_bound_by=bounds["dkv"][1],
                     exp_sfu_ms=exp_sfu_ms(bh, TOKENS, sfu_rate))
-                row.update(split_kernel_ms(fa, q, k, v, o, lse, do, kw))
+                row.update(split_kernel_ms(q, k, v, o, lse, do, kw))
                 if not p:
                     row["library_ms"] = sdpa_backward_ms(F, q, k, v, do, sm)
                 rows.append(row)
@@ -759,13 +842,15 @@ def phase_flash_shapes():
     return batch1
 
 
-def split_kernel_ms(fa, q, k, v, o, lse, do, kw):
-    """Device time of the dq and the dkv kernel alone, by their names in a
-    trace of the split backward."""
-    dq, dkv = named_kernel_ms(lambda: fa.flash_mha_bwd(
-        q, k, v, o, lse, do, mode="split", **kw),
-        ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"))
-    return {"dq_ms": dq, "dkv_ms": dkv}
+def split_kernel_ms(q, k, v, o, lse, do, kw):
+    """The split pair's dq kernel (flash_bwd_dq_mma_kernel in bf16,
+    flash_bwd_dq_kernel in f32) and dk/dv kernel (flash_bwd_dkv_mma_kernel,
+    flash_bwd_dkv_kernel) each alone, through their own C entries
+    (tools/bench_flash.split_kernels), timed by CUDA events."""
+    from deepsense6g_tii_tpu_torch.ops import flash_attention as fa
+    from deepsense6g_tii_tpu_torch.tools import bench_flash
+    dq, dkv = bench_flash.split_kernels(fa, q, k, v, o, lse, do, **kw)
+    return {"dq_ms": time_ms(dq), "dkv_ms": time_ms(dkv)}
 
 
 def sdpa_backward_ms(F, q, k, v, do, sm, timer=None):
@@ -1238,32 +1323,6 @@ def phase_roofline(fmul_rate):
               for k in ("fwd", "bwd", "fwd_sequential")),
           f"roofline: scan times {out}")
     return out, counts
-
-
-def named_kernel_ms(fn, tags, iters=10, tries=3):
-    """Device time per call of ``fn`` of each kernel whose name holds one
-    of ``tags``, from a trace of ``iters`` calls; each must launch once a
-    call.  A trace that holds fewer of them (the profiler on the card's
-    machine now and then drops device events) is taken again, up to
-    ``tries`` times; if the last still lacks some, each kernel's mean time
-    over the launches it holds is taken, provided that it holds at least
-    90% of them."""
-    import torch
-    fn()
-    for _ in range(tries):
-        kernels, _ = traced_kernels(lambda: [fn() for _ in range(iters)])
-        torch.cuda.synchronize()
-        times = [[e.time_range.elapsed_us() for e in kernels if tag in e.name]
-                 for tag in tags]
-        if all(len(t) == iters for t in times):
-            return [sum(t) / iters / 1e3 for t in times]
-    check(all(0.9 * iters <= len(t) <= iters for t in times),
-          f"{tries} traces hold {[len(t) for t in times]} launches of "
-          f"{tags}, expected {iters} each")
-    print(f"named_kernel_ms: {tries} traces dropped launches of {tags}; the "
-          f"last holds {[len(t) for t in times]} of {iters}, timed by the "
-          f"mean")
-    return [sum(t) / len(t) / 1e3 for t in times]
 
 
 def passes_ms(fn, tags, iters=10, tries=3):
@@ -2239,6 +2298,7 @@ def phase_kernels_30to5(sfu_rate, tokens, scan_shapes):
             kw = dict(sm_scale=sm, dropout_p=p, seed=seed)
             o, lse = fa.flash_mha_fwd(q, k, v, **kw)
             dq = fa.flash_mha_bwd(q, k, v, o, lse, do, mode="merged", **kw)
+            split = fa.flash_mha_bwd(q, k, v, o, lse, do, mode="split", **kw)
             torch.cuda.synchronize()
             ro, rlse = fa.flash_mha_reference(q, k, v, sm, p, seed or 0)
             err_o = (o.float() - ro.float()).abs().max().item()
@@ -2253,17 +2313,20 @@ def phase_kernels_30to5(sfu_rate, tokens, scan_shapes):
             ref = fa.flash_mha_bwd_reference(q, k, v, o, lse, do, sm, p,
                                              (seed or 0) & 0xFFFFFFFF)
             scale = [r.float().abs().max().item() for r in ref]
-            err = [(g.float() - r.float()).abs().max().item()
-                   for g, r in zip(dq, ref)]
-            check(all(e <= BWD_RTOL[dname] * s_
-                      for e, s_ in zip(err, scale)),
-                  f"flash backward {dname} T={tokens} d={d} p={p}: max "
-                  f"|d(q,k,v) err| {err} of max |plain| {scale}")
-            del dq, ref, ro, rlse
+            err, err_split = ([(g.float() - r.float()).abs().max().item()
+                               for g, r in zip(got, ref)]
+                              for got in (dq, split))
+            for what, errs in (("merged", err), ("split", err_split)):
+                check(all(e <= BWD_RTOL[dname] * s_
+                          for e, s_ in zip(errs, scale)),
+                      f"flash backward {what} {dname} T={tokens} d={d} "
+                      f"p={p}: max |d(q,k,v) err| {errs} of max |plain| "
+                      f"{scale}")
+            del dq, split, ref, ro, rlse
             if dname == "float32":
                 print(f"flash f32 T={tokens} d={d} p={p}: O err "
                       f"{err_o:.3g}, lse err {err_l:.3g}, d(q,k,v) err "
-                      f"{err} of {scale}")
+                      f"{err}, split {err_split} of {scale}")
                 continue
             fwd = dict(d=d, p=p, max_abs_err=err_o, lse_err=err_l,
                        ms=time_ms(lambda: fa.flash_mha_fwd(q, k, v, **kw)),
@@ -2286,6 +2349,17 @@ def phase_kernels_30to5(sfu_rate, tokens, scan_shapes):
                        exp_sfu_ms=exp_sfu_ms(bh, tokens, sfu_rate),
                        **bound(10.0 * bh * tokens * tokens * d,
                                8 * n_el * 2 + 2 * bh * tokens * 4))
+            # the split pair: the whole call and each kernel alone, with
+            # its err and bound (dq: S, dP, dS k; dk/dv: S, dP, dv, dk)
+            bwd.update(split_err=err_split,
+                       split_ms=time_ms(lambda: fa.flash_mha_bwd(
+                           q, k, v, o, lse, do, mode="split", **kw)),
+                       **split_kernel_ms(q, k, v, o, lse, do, kw))
+            for name, ops, els in (("dq", 6.0, 6), ("dkv", 8.0, 7)):
+                b_ = bound(ops * bh * tokens * tokens * d,
+                           els * n_el * 2 + 2 * bh * tokens * 4)
+                bwd[f"{name}_bound_ms"] = b_["bound_ms"]
+                bwd[f"{name}_bound_by"] = b_["bound_by"]
             rows["fwd"].append(fwd)
             rows["bwd"].append(bwd)
             print(f"kernel flash_attention_fwd T={tokens} " + json.dumps(fwd))
@@ -2357,6 +2431,45 @@ def phase_kernels_30to5(sfu_rate, tokens, scan_shapes):
     print(f"kernels at the 30-to-5 shapes: "
           f"{time.perf_counter() - t0:.1f} s")
     return rows
+
+
+def phase_train_split(card, merged):
+    """The bf16 GPT TransFuser training leg through the split backward
+    (DEEPSENSE_FLASH_BWD=split): SPLIT_STEPS steps of phase_train from the
+    same seed-0 weights, batch and generators as the merged leg (``merged``,
+    phase_train's result).  Every step launches exactly 32 flash forwards,
+    32 dq and 32 dk/dv kernels and no merged backward (the counts at 0 just
+    before each step, read just after); each step's loss is finite (as
+    phase_train checks) and off the merged leg's at the same step by at
+    most TRAIN_SPLIT_FALL_RTOL of the merged leg's fall since its first
+    step (so the first losses are equal).  Prints its step p50 beside the
+    merged leg's; returns phase_train's result."""
+    from deepsense6g_tii_tpu_torch.ops import flash_attention as fa
+    from deepsense6g_tii_tpu_torch.serve import gpt_transfuser_config
+    n = 4 * N_LAYER
+    os.environ["DEEPSENSE_FLASH_BWD"] = "split"
+    try:
+        result, _, _ = phase_train(
+            card, "train split", gpt_transfuser_config(),
+            {fa.KERNEL: n, fa.KERNEL_DQ: n, fa.KERNEL_DKV: n},
+            steps=SPLIT_STEPS, falls=False)
+    finally:
+        del os.environ["DEEPSENSE_FLASH_BWD"]
+    ref = merged["loss"][:SPLIT_STEPS]
+    gaps = [abs(a - b) for a, b in zip(result["loss"], ref)]
+    falls = [abs(ref[0] - b) for b in ref]
+    print(f"train split against merged on {card}: " + json.dumps(
+        {"step_ms_p50": {"split": result["step_ms_p50"],
+                         "merged": merged["step_ms_p50"]},
+         "loss": {"split": result["loss"], "merged": ref},
+         "loss_rel_gap": [g / abs(b) for g, b in zip(gaps, ref)],
+         "gap_of_fall": [g / f if f else None for g, f in zip(gaps, falls)],
+         "launches_per_step": result["launches_per_step"]}))
+    check(all(g <= TRAIN_SPLIT_FALL_RTOL * f for g, f in zip(gaps, falls)),
+          f"train split: losses {result['loss']} off the merged leg's "
+          f"{ref} by {gaps}, beyond {TRAIN_SPLIT_FALL_RTOL} of the merged "
+          f"leg's fall {falls} (the first step's must be equal)")
+    return result
 
 
 def phase_train_f32(init, batch):
@@ -2607,9 +2720,10 @@ def bound_by(rows, key="bound_by"):
 
 
 def phase_flash_parent(root):
-    """With ``--parent PATH``: the flash forward and merged backward of the
-    checkout at PATH (e.g. a ``git archive`` of the parent commit) against
-    this checkout's, per GPT training step (tools/bench_flash.per_step: B=8,
+    """With ``--parent PATH``: the flash forward, the merged backward, the
+    split backward and each kernel of the split pair alone of the checkout
+    at PATH (e.g. a ``git archive`` of the parent commit) against this
+    checkout's, per GPT training step (tools/bench_flash.per_step: B=8,
     bf16, 8 launches at each head dim, dropout 0 and 0.1), timed on this
     card in the order parent, change, change, parent.  Returns each side's
     mean of its two runs, or None without a parent."""
@@ -2623,7 +2737,7 @@ def phase_flash_parent(root):
         runs[who].append(bench_flash.per_step(
             DEVICE, bench_flash.load_flash(root if who == "parent" else None)))
     out = {who: {key: {m: (r[0][key][m] + r[1][key][m]) / 2
-                       for m in ("fwd_ms", "bwd_ms")} for key in r[0]}
+                       for m in bench_flash.MEASURES} for key in r[0]}
            for who, r in runs.items()}
     out["runs"] = runs
     print("flash per GPT training step, parent vs change (B=8, bf16; "
@@ -2721,6 +2835,8 @@ def main(argv=None):
         {fa.KERNEL: 4 * N_LAYER, fa.KERNEL_MERGED: 4 * N_LAYER})
     phase_train_f32(init, batch)
     del init, batch
+    # the split pair's main path: the same training step through it
+    train_split = phase_train_split(card, train)
     # this slice's main path: 67 forward and 67 backward scans a step
     n_scan = sum(SCAN_LAUNCHES.values())
     mtrain, init, batch = phase_train(
@@ -2793,9 +2909,9 @@ def main(argv=None):
         print(f"{label}: " + json.dumps(scan_sums[label]))
 
     # Per training step at batch 8 in bf16, dropout 0.1: 8 launches at each
-    # stage shape.  The split pair (dq + dkv) is not on the path (the
-    # backward runs merged), so its launches are 0 and its times are what
-    # it would take in the merged kernel's place; the plain backward and
+    # stage shape.  The default step runs the merged backward; the split
+    # pair (dq + dkv) runs on the train split leg (DEEPSENSE_FLASH_BWD=
+    # split), 32 launches of each kernel a step.  The plain backward and
     # SDPA's backward (dropout 0) compute dq, dk and dv together.
     fwd = [r for r in flash_rows
            if r["dtype"] == "bfloat16" and r["p"] == DROP_P]
@@ -2804,11 +2920,25 @@ def main(argv=None):
     sdpa_bwd = summed([r for r in bwd_rows if r["dtype"] == "bfloat16"
                        and r["p"] == 0.0], "library_ms")
     steps = train["launches_per_step"]
+    split_steps = train_split["launches_per_step"]
+
+    def split_pair(rows, sdpa):
+        """The split pair against the merged kernel and SDPA's backward,
+        per training step (rows at one dropout p)."""
+        pair = summed(rows, "dq_ms") + summed(rows, "dkv_ms")
+        return {"merged_ms": summed(rows, "ms"),
+                "split_ms": summed(rows, "split_ms"),
+                "dq_ms": summed(rows, "dq_ms"),
+                "dkv_ms": summed(rows, "dkv_ms"), "pair_ms": pair,
+                "pair_vs_merged": pair / summed(rows, "ms"),
+                "pair_vs_sdpa_bwd": pair / sdpa if sdpa else None,
+                "dq_bound_ms": summed(rows, "dq_bound_ms"),
+                "dkv_bound_ms": summed(rows, "dkv_bound_ms"),
+                "split_flops_ms": summed(rows, "split_flops_ms")}
+
     print("flash backward per training step: " + json.dumps(
-        {"merged_ms": summed(bwd, "ms"), "split_ms": summed(bwd, "split_ms"),
-         "plain_ms": summed(bwd, "plain_ms"), "sdpa_bwd_ms": sdpa_bwd,
-         "bound_ms": summed(bwd, "bound_ms"),
-         "split_flops_ms": summed(bwd, "split_flops_ms"),
+        {**split_pair(bwd, None), "plain_ms": summed(bwd, "plain_ms"),
+         "sdpa_bwd_ms": sdpa_bwd, "bound_ms": summed(bwd, "bound_ms"),
          "exp_sfu_ms": summed(bwd, "exp_sfu_ms")}))
     # after every traced phase: the parent's kernels load beside this
     # checkout's
@@ -2822,7 +2952,8 @@ def main(argv=None):
          "merged_ms": summed(bwd0, "ms"), "sdpa_bwd_ms": sdpa_bwd,
          "fwd_bound_ms": summed(fwd0, "bound_ms"),
          "bwd_bound_ms": summed(bwd0, "bound_ms"),
-         "exp_sfu_ms": summed(fwd0, "exp_sfu_ms")}))
+         "exp_sfu_ms": summed(fwd0, "exp_sfu_ms"),
+         "split": split_pair(bwd0, sdpa_bwd)}))
 
     def cli_launches(name):
         """A train step's launches on the train CLI's path (cli phase)."""
@@ -2870,12 +3001,29 @@ def main(argv=None):
         out["tokens"] = v30["tokens"]
         return out
 
+    def split_30to5(name, pick_err):
+        """Kernel ``name`` ("dq" or "dkv") of the split pair per 30-to-5
+        GPT training step (p = DROP_P, 8 launches at each head dim); the
+        plain time is the whole plain backward's."""
+        rows = [r for r in k30["bwd"] if r["p"] == DROP_P]
+        return {"ms": summed(rows, f"{name}_ms"),
+                "split_ms": summed(rows, "split_ms"),
+                "plain_ms": summed(rows, "plain_ms"),
+                "bound_ms": summed(rows, f"{name}_bound_ms"),
+                "bound_by": bound_by(rows, f"{name}_bound_by"),
+                "library_ms": None,
+                "max_abs_err": max(pick_err(r["split_err"]) for r in rows),
+                "tokens": v30["tokens"]}
+
     def entry(name, source, replaces, ms, bound, by, plain, library, err,
-              **extra):
+              launches=None, **extra):
+        """A kernel's row; ``launches`` a training step's (default: the
+        merged leg's)."""
         return {"name": name, "route": "cuda",
                 "source": f"deepsense6g_tii_tpu_torch/csrc/{source}",
                 "replaces": f"deepsense6g_tii_tpu/ops/{replaces}",
-                "launches": steps.get(name, 0),
+                "launches": (steps.get(name, 0) if launches is None
+                             else launches),
                 "cli_launches_per_step": cli_launches(name),
                 "launches_30to5": launches_30to5(name),
                 "launches_rebuild": launches_rebuild(name),
@@ -2909,18 +3057,23 @@ def main(argv=None):
               sdpa_bwd, max(r["max_abs_err"] for r in bwd),
               exp_sfu_ms=summed(bwd, "exp_sfu_ms"), **vs_parent("bwd_ms"),
               per_step_30to5=at_30to5(k30["bwd"], None, DROP_P)),
+        # the split pair: launches a step of the train split leg
         entry(fa.KERNEL_DQ, "flash_attention_bwd.cu",
               "flash_attention.py:265", summed(bwd, "dq_ms"),
               summed(bwd, "dq_bound_ms"), bound_by(bwd, "dq_bound_by"),
               summed(bwd, "plain_ms"), None,
               max(r["err"]["split"][0] for r in bwd),
-              exp_sfu_ms=summed(bwd, "exp_sfu_ms")),
+              launches=split_steps.get(fa.KERNEL_DQ, 0),
+              exp_sfu_ms=summed(bwd, "exp_sfu_ms"), **vs_parent("dq_ms"),
+              per_step_30to5=split_30to5("dq", lambda e: e[0])),
         entry(fa.KERNEL_DKV, "flash_attention_bwd.cu",
               "flash_attention.py:297", summed(bwd, "dkv_ms"),
               summed(bwd, "dkv_bound_ms"), bound_by(bwd, "dkv_bound_by"),
               summed(bwd, "plain_ms"), None,
               max(max(r["err"]["split"][1:]) for r in bwd),
-              exp_sfu_ms=summed(bwd, "exp_sfu_ms")),
+              launches=split_steps.get(fa.KERNEL_DKV, 0),
+              exp_sfu_ms=summed(bwd, "exp_sfu_ms"), **vs_parent("dkv_ms"),
+              per_step_30to5=split_30to5("dkv", lambda e: max(e[1:]))),
     ]
     msteps = mtrain["launches_per_step"]
 

@@ -14,8 +14,9 @@ compiled, so a build takes seconds.
 :func:`launch` calls a kernel's C entry point on the current stream and
 raises on the CUDA error it returns.  ``KERNEL_LAUNCHES`` counts launches
 per kernel name: :func:`launch` adds one where it launches a kernel and
-nowhere else, so a caller can reset the counts, run the model and see which
-kernels the run went through.
+nowhere else (one for each kernel an entry point launches), so a caller
+can reset the counts, run the model and see which kernels the run went
+through.
 """
 
 from __future__ import annotations
@@ -144,12 +145,13 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
-def launch(library: str, fname: str, argtypes: Sequence, count_as: str,
+def launch(library: str, fname: str, argtypes: Sequence, count_as,
            device, *args) -> None:
     """Calls ``fname`` of ``csrc/<library>.cu`` (built and loaded at first
     use; ``argtypes`` are its ctypes argument types, the stream last) with
     ``args`` and ``device``'s current stream, raises if it returns a CUDA
-    error, and counts one launch of ``count_as``."""
+    error, and counts one launch of ``count_as`` (a kernel name, or a tuple
+    of the names of the kernels that ``fname`` launches)."""
     import torch
     fn = _FNS.get(fname)
     if fn is None:
@@ -160,4 +162,5 @@ def launch(library: str, fname: str, argtypes: Sequence, count_as: str,
         err = fn(*args, torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"{fname} launch failed with CUDA error {err}")
-    count_launch(count_as)
+    for name in (count_as,) if isinstance(count_as, str) else count_as:
+        count_launch(name)

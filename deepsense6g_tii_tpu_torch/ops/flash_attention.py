@@ -11,12 +11,13 @@ Counterpart of ``deepsense6g_tii_tpu/ops/flash_attention.py:71-651``
   score matrix in device memory.
 - ``csrc/flash_attention_bwd.cu`` recomputes P = exp(s·scale − lse) tile by
   tile and forms dq, dk and dv: in one pass (``merged``, the TPU's
-  ``_merged_bwd_kernel``) or as the ``dq`` + ``dkv`` pair (``split``).
+  ``_merged_bwd_kernel``) or as the ``dq`` + ``dkv`` pair (``split``, the
+  deterministic one: no atomics).
 
-In bf16, the dtype the card serves and trains in, the forward and the
-merged backward run their products on the tensor cores
-(mma.sync.m16n8k16, bf16 operands, f32 sums; ``csrc/flash_mma.cuh``); in
-f32, and for the split pair, the products run on the CUDA cores in f32.
+In bf16, the dtype the card serves and trains in, the forward and both
+backwards run their products on the tensor cores (mma.sync.m16n8k16, bf16
+operands, f32 sums; ``csrc/flash_mma.cuh``); in f32 the products run on
+the CUDA cores in f32.
 - ``csrc/flash_dropout_mask.cu`` exports the dropout scale that the other
   kernels draw, the oracle for their stream.
 
@@ -202,6 +203,8 @@ _SIGNATURES = {
     "flash_attention_fwd": (KERNEL, [_PTR] * 5 + [_INT] * 4
                             + [_F32, _U32T, _F32, _U32T, _INT, _PTR]),
     "flash_bwd_merged": (BWD_LIBRARY, [_PTR] * 11 + [_INT] * 4 + _DROP_ARGS),
+    "flash_bwd_split": (BWD_LIBRARY, [_PTR] * 10 + [_INT] * 4 + _DROP_ARGS),
+    # each kernel of the split pair alone, dvec from the caller (timing)
     "flash_bwd_dq": (BWD_LIBRARY, [_PTR] * 7 + [_INT] * 4 + _DROP_ARGS),
     "flash_bwd_dkv": (BWD_LIBRARY, [_PTR] * 8 + [_INT] * 4 + _DROP_ARGS),
     "flash_dropout_mask": (KERNEL_MASK, [_PTR, _INT, _INT, _U32T, _F32,
@@ -209,7 +212,7 @@ _SIGNATURES = {
 }
 
 
-def _launch(fname: str, count_as: str, device, *args) -> None:
+def _launch(fname: str, count_as, device, *args) -> None:
     library, argtypes = _SIGNATURES[fname]
     _build.launch(library, fname, argtypes, count_as, device, *args)
 
@@ -331,25 +334,22 @@ def flash_mha_bwd(q, k, v, o, lse, do, *, sm_scale, dropout_p: float = 0.0,
     tail = (b * h, t, d, int(q.dtype == torch.bfloat16), float(sm_scale),
             keep_threshold(p), scale, _input_scale(p, q.dtype), seed_u32,
             t_pad)
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
-    # dvec = rowsum(dO∘O) in f32: the merged kernel's prologue fills it
-    # (and zeros its f32 dq buffer); the split pair takes it from here
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    # dvec = rowsum(dO∘O) in f32: scratch that each entry's prologue fills
     dvec = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    head += (o.data_ptr(), lse.data_ptr(), dvec.data_ptr(), dq.data_ptr(),
+             dk.data_ptr(), dv.data_ptr())
     if mode == "merged":
-        dq = torch.empty_like(q)
+        # the merged kernel adds dq into an f32 buffer that its prologue
+        # zeros: dq itself in f32
         acc = dq if q.dtype == torch.float32 else torch.empty(
             q.shape, dtype=torch.float32, device=q.device)
         _launch("flash_bwd_merged", KERNEL_MERGED, q.device, *head,
-                o.data_ptr(), lse.data_ptr(), dvec.data_ptr(), dq.data_ptr(),
-                dk.data_ptr(), dv.data_ptr(), acc.data_ptr(), *tail)
+                acc.data_ptr(), *tail)
     else:
-        torch.sum(do.float() * o.float(), -1, out=dvec)
-        dq = torch.empty_like(q)
-        head += (lse.data_ptr(), dvec.data_ptr())
-        _launch("flash_bwd_dq", KERNEL_DQ, q.device, *head, dq.data_ptr(),
+        # one C call: the prologue, then the dq and the dk/dv kernel
+        _launch("flash_bwd_split", (KERNEL_DQ, KERNEL_DKV), q.device, *head,
                 *tail)
-        _launch("flash_bwd_dkv", KERNEL_DKV, q.device, *head, dk.data_ptr(),
-                dv.data_ptr(), *tail)
     return dq, dk, dv
 
 

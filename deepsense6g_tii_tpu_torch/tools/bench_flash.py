@@ -12,10 +12,12 @@ v (the merged backward kernel).  TF/s counts the forward's 4·B·H·T²·D
 matmul operations (T unpadded: the kernels mask the columns past T).
 
 Then one JSON line per GPT TransFuser training step: at B=8, bf16, the
-forward kernel (``flash_mha_fwd``) and the merged backward
-(``flash_mha_bwd(mode="merged")``, with its dvec reduction and dq cast)
-each timed alone and summed as a step launches them, 8 times at each head
-dim, at dropout 0 and 0.1.
+forward kernel (``flash_mha_fwd``), the merged backward
+(``flash_mha_bwd(mode="merged")``, with its dvec prologue and dq cast),
+the split backward (``mode="split"``: its dvec pass, the dq and the dk/dv
+kernel) and each kernel of the split pair alone (its own C entry, dvec
+formed beforehand), each timed alone and summed as a step launches them, 8
+times at each head dim, at dropout 0 and 0.1.
 
 ``--root PATH`` (repeatable) times the kernels of the checkout at PATH
 instead of this one, each loaded under a name of its own and built under
@@ -42,6 +44,9 @@ SEED = 12345                   # the dropout stream's seed
 STEP_BATCH = 8                 # a GPT training step's batch
 STEP_LAUNCHES = 8              # launches a step at each head dim
 HEAD_DIMS = (16, 32, 64, 128)
+# launch_ms's and per_step's measures: forward, merged backward, split
+# backward, the split pair's dq and dk/dv kernels alone
+MEASURES = ("fwd_ms", "bwd_ms", "split_bwd_ms", "dq_ms", "dkv_ms")
 _PACKAGE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -74,30 +79,66 @@ def bench(d, p, dtype=torch.bfloat16, device="cuda", flash=fa):
     return t_f, timing.time_ms(fwdbwd, device)
 
 
+def split_kernels(flash, q, k, v, o, lse, do, *, sm_scale,
+                  dropout_p=0.0, seed=None):
+    """Two closures that launch the split pair's dq kernel and its dk/dv
+    kernel each alone, through their own C entries (``flash_bwd_dq``,
+    ``flash_bwd_dkv``), with dvec = rowsum(dO∘O) formed beforehand, so
+    that each kernel is timed by itself.  ``flash`` is a checkout's
+    ops/flash_attention.py (the entries are the same since the first
+    port of the pair)."""
+    b, h, t, d = q.shape
+    p, scale, seed_u32, t_pad = flash._drop_args(dropout_p, seed, t,
+                                                 flash.DEFAULT_BLOCK)
+    dvec = (do.float() * o.float()).sum(-1)
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), dvec.data_ptr())
+    tail = (b * h, t, d, int(q.dtype == torch.bfloat16), float(sm_scale),
+            flash.keep_threshold(p), scale, flash._input_scale(p, q.dtype),
+            seed_u32, t_pad)
+
+    def dq_kernel():
+        flash._launch("flash_bwd_dq", flash.KERNEL_DQ, q.device, *head,
+                      dq.data_ptr(), *tail)
+        return dq
+
+    def dkv_kernel():
+        flash._launch("flash_bwd_dkv", flash.KERNEL_DKV, q.device, *head,
+                      dk.data_ptr(), dv.data_ptr(), *tail)
+        return dk, dv
+
+    return dq_kernel, dkv_kernel
+
+
 def launch_ms(d, p, device="cuda", flash=fa):
-    """(forward, merged backward) ms per launch at a training step's
-    shape: B=8, bf16, head dim ``d``, dropout ``p``."""
+    """{measure: ms per launch} (MEASURES) at a training step's shape:
+    B=8, bf16, head dim ``d``, dropout ``p``."""
     q, k, v, do = inputs(d, torch.bfloat16, device=device,
                          batch=STEP_BATCH, n=4)
     kw = dict(sm_scale=d ** -0.5, dropout_p=p, seed=SEED if p else None)
     o, lse = flash.flash_mha_fwd(q, k, v, **kw)
-    return (timing.time_ms(lambda: flash.flash_mha_fwd(q, k, v, **kw),
-                           device),
-            timing.time_ms(lambda: flash.flash_mha_bwd(
-                q, k, v, o, lse, do, mode="merged", **kw), device))
+    dq_kernel, dkv_kernel = split_kernels(flash, q, k, v, o, lse, do, **kw)
+    fns = (lambda: flash.flash_mha_fwd(q, k, v, **kw),
+           lambda: flash.flash_mha_bwd(q, k, v, o, lse, do, mode="merged",
+                                       **kw),
+           lambda: flash.flash_mha_bwd(q, k, v, o, lse, do, mode="split",
+                                       **kw),
+           dq_kernel, dkv_kernel)
+    return {m: timing.time_ms(fn, device) for m, fn in zip(MEASURES, fns)}
 
 
 def per_step(device="cuda", flash=fa, dims=HEAD_DIMS):
-    """{"p=<p>": {"fwd_ms", "bwd_ms", per-launch ms by head dim}} per GPT
-    training step: each kernel's launch time summed over 8 launches at
-    each head dim, at dropout 0 and 0.1."""
+    """{"p=<p>": {measure: ms, "launch_ms": per-launch ms by head dim}} per
+    GPT training step: each measure's launch time summed over 8 launches
+    at each head dim, at dropout 0 and 0.1."""
     out = {}
     for p in (0.0, 0.1):
         ms = {d: launch_ms(d, p, device, flash) for d in dims}
         out[f"p={p}"] = {
-            "fwd_ms": STEP_LAUNCHES * sum(f for f, _ in ms.values()),
-            "bwd_ms": STEP_LAUNCHES * sum(b for _, b in ms.values()),
-            "launch_ms": {str(d): list(v) for d, v in ms.items()}}
+            **{m: STEP_LAUNCHES * sum(r[m] for r in ms.values())
+               for m in MEASURES},
+            "launch_ms": {str(d): r for d, r in ms.items()}}
     return out
 
 

@@ -29,7 +29,8 @@ TransFuser through the flash-attention kernels:
     python -m deepsense6g_tii_tpu_torch.train.steps --FFM 0 --TFM 0
 
 Not in the port: ``steps_per_dispatch`` (the TPU's K-step ``lax.scan``
-dispatch) and ``flatten_accum`` (ROADMAP.md Queue 1 item 2).
+dispatch; ROADMAP.md Queue 1 item 5) and ``flatten_accum`` (a TPU dispatch
+knob; ROADMAP.md, Out of scope).
 """
 
 from __future__ import annotations

@@ -2,14 +2,18 @@
 (deepsense6g_tii_tpu_torch/ops/flash_attention.py) against the JAX
 package's: the hash stream bit for bit, the kernels' integer keep
 threshold against the float compare, the forward with dropout and the
-gradients against the Pallas kernels in interpret mode (also in bf16 at
-the production length, T = 962), and the plain backward against torch
-autograd.
+gradients against the Pallas kernels in interpret mode, merged and split
+(also in bf16 at the production length, T = 962), and the plain backward
+against torch autograd.  The CUDA route's argument packing is held to the
+C entries' declarations in csrc/.
 
 On a CPU tensor the port's wrappers run their plain versions, which is what
 these tests hold against JAX; the CUDA kernels are held against the same
 plain versions on the card by chip_smoke.py.
 """
+
+import ctypes
+import re
 
 import jax
 import jax.numpy as jnp
@@ -101,9 +105,19 @@ def test_forward_with_dropout_matches_pallas(t, p):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **FWD_TOL)
 
 
+def _jax_bwd_mode(monkeypatch, mode, d):
+    """Sets the JAX package's backward (DEEPSENSE_FLASH_BWD, which its
+    _bwd_mode reads while tracing) to ``mode``: the Pallas merged kernel or
+    the dq + dkv pair, the two the port's kernels are held to."""
+    monkeypatch.setenv("DEEPSENSE_FLASH_BWD", mode)
+    assert jfa._bwd_mode(1024, d) == mode
+
+
+@pytest.mark.parametrize("mode", ["merged", "split"])
 @pytest.mark.parametrize("t,d", [(130, 64), (200, 32)])
 @pytest.mark.parametrize("p", [0.0, 0.25])
-def test_grads_match_pallas(t, d, p):
+def test_grads_match_pallas(monkeypatch, t, d, p, mode):
+    _jax_bwd_mode(monkeypatch, mode, d)
     q, k, v, w = _qkv(100 * t + d, t=t, d=d)
     key = jax.random.PRNGKey(3)
     sm = d ** -0.5
@@ -202,6 +216,104 @@ def test_backward_input_checks(case):
         fa._check_bwd_inputs(q, k, v, lse, do, q)
 
 
+# -- the CUDA entries' arguments ---------------------------------------------
+
+_CTYPES = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
+           "int": ctypes.c_int, "float": ctypes.c_float,
+           "uint32_t": ctypes.c_uint32}
+
+
+def _c_params(library, fname):
+    """(type, name) of each parameter of ``extern "C" int fname(...)`` as
+    ``csrc/<library>.cu`` declares it."""
+    src = (_build.CSRC_DIR / f"{library}.cu").read_text()
+    m = re.search(r'extern "C" int ' + fname + r"\((.*?)\)\s*\{", src, re.S)
+    assert m, f"{fname} not declared in {library}.cu"
+    return [tuple(" ".join(p.split()).rsplit(" ", 1))
+            for p in m.group(1).split(",")]
+
+
+@pytest.mark.parametrize("fname", sorted(fa._SIGNATURES))
+def test_ctypes_signature_matches_the_c_entry(fname):
+    library, argtypes = fa._SIGNATURES[fname]
+    params = _c_params(library, fname)
+    assert [_CTYPES[t] for t, _ in params] == list(argtypes)
+    assert params[-1] == ("void*", "stream")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["merged", "split"])
+def test_cuda_route_packs_each_c_argument(monkeypatch, mode, dtype):
+    """flash_mha_bwd's CUDA route with the launch recorded instead of run
+    (tensors on the CPU): one C call a backward, each argument as the C
+    entry names it, and the kernels it counts (split: the dq and the dk/dv
+    kernel of one call, nothing falling back to the plain version)."""
+    calls = []
+    monkeypatch.setattr(fa, "_device_kind", lambda x: "cuda")
+    monkeypatch.setattr(fa, "flash_mha_bwd_reference", None)
+    monkeypatch.setattr(
+        _build, "launch", lambda library, fname, argtypes, count_as, device,
+        *args: calls.append((library, fname, count_as, args)))
+    q, k, v, do = (torch.tensor(x, dtype=dtype)
+                   for x in _qkv(8, b=2, h=3, t=40, d=32))
+    o = torch.tensor(_qkv(9, b=2, h=3, t=40, d=32)[0], dtype=dtype)
+    lse = torch.zeros(2, 3, 40)
+    dq, dk, dv = fa.flash_mha_bwd(q, k, v, o, lse, do, sm_scale=0.3,
+                                  dropout_p=0.1, seed=-7, mode=mode)
+    (library, fname, count_as, args), = calls
+    assert (library, fname) == (fa.BWD_LIBRARY, f"flash_bwd_{mode}")
+    assert count_as == (fa.KERNEL_MERGED if mode == "merged"
+                        else (fa.KERNEL_DQ, fa.KERNEL_DKV))
+    names = [n for _, n in _c_params(library, fname)]
+    assert names[-1] == "stream" and len(args) == len(names) - 1
+    got = dict(zip(names, args))
+    want = dict(q=q, k=k, v=v, dout=do, o=o, lse=lse, dq=dq, dk=dk, dv=dv)
+    assert {n: got[n] for n in want} == {n: x.data_ptr()
+                                         for n, x in want.items()}
+    assert dq.shape == q.shape and dq.dtype == dtype
+    assert got["dvec"] not in {x.data_ptr() for x in want.values()}
+    if mode == "merged":     # f32: dq sums in place; bf16: its own buffer
+        assert (got["dq_acc"] == dq.data_ptr()) == (dtype == torch.float32)
+    assert {n: got[n] for n in ("bh", "t", "d", "is_bf16", "t_pad")} == dict(
+        bh=6, t=40, d=32, is_bf16=int(dtype == torch.bfloat16), t_pad=512)
+    assert got["sm_scale"] == 0.3 and got["seed"] == (-7) & U32
+    assert got["keep_min"] == fa.keep_threshold(0.1)
+    assert got["drop_scale"] == fa.drop_scale(0.1)
+    assert got["c_in"] == fa._input_scale(0.1, dtype)
+
+
+@pytest.mark.parametrize("which", [0, 1])
+def test_split_kernels_alone_pack_each_c_argument(monkeypatch, which):
+    """tools/bench_flash.split_kernels, which times the dq kernel or the
+    dk/dv kernel alone: each argument of flash_bwd_dq / flash_bwd_dkv as
+    the C entry names it, dvec = rowsum(dO∘O) formed beforehand."""
+    from deepsense6g_tii_tpu_torch.tools import bench_flash
+    calls = []
+    monkeypatch.setattr(
+        _build, "launch", lambda library, fname, argtypes, count_as, device,
+        *args: calls.append((fname, count_as, args)))
+    q, k, v, do = (torch.tensor(x, dtype=torch.bfloat16)
+                   for x in _qkv(10, b=1, h=2, t=30, d=16))
+    o = torch.tensor(_qkv(11, b=1, h=2, t=30, d=16)[0], dtype=torch.bfloat16)
+    lse = torch.zeros(1, 2, 30)
+    fns = bench_flash.split_kernels(fa, q, k, v, o, lse, do, sm_scale=0.25,
+                                    dropout_p=0.1, seed=5)
+    out = fns[which]()
+    (fname, count_as, args), = calls
+    assert (fname, count_as) == (("flash_bwd_dq", fa.KERNEL_DQ),
+                                 ("flash_bwd_dkv", fa.KERNEL_DKV))[which]
+    names = [n for _, n in _c_params(fa.BWD_LIBRARY, fname)]
+    got = dict(zip(names, args))
+    outs = dict(dq=out) if which == 0 else dict(dk=out[0], dv=out[1])
+    want = dict(q=q, k=k, v=v, dout=do, lse=lse, **outs)
+    assert {n: got[n] for n in want} == {n: x.data_ptr()
+                                         for n, x in want.items()}
+    assert {n: got[n] for n in ("bh", "t", "d", "is_bf16", "t_pad")} == dict(
+        bh=2, t=30, d=16, is_bf16=1, t_pad=512)
+    assert (got["keep_min"], got["c_in"]) == (
+        fa.keep_threshold(0.1), fa._input_scale(0.1, torch.bfloat16))
+
+
 # -- the integer keep threshold ------------------------------------------------
 
 @pytest.mark.parametrize("p", [0.1, 0.25, 0.3, 1 / 3, 0.5, 2.0 ** -24, 1e-7,
@@ -260,11 +372,14 @@ def test_bf16_forward_at_full_length_matches_pallas(d, p):
                                atol=_bf16_ulps(want))
 
 
+@pytest.mark.parametrize("mode", ["merged", "split"])
 @pytest.mark.parametrize("d", [16, 32, 64, 128])
-def test_bf16_grads_at_full_length_match_pallas(d):
-    """The plain backward that the merged bf16 kernel is held to on the
-    card, against the Pallas kernels' VJP (interpret mode) at T = 962, bf16,
-    dropout 0.1: each gradient within 2 bf16 ulps of its largest value."""
+def test_bf16_grads_at_full_length_match_pallas(monkeypatch, d, mode):
+    """The plain backward that the bf16 kernels (merged and split) are held
+    to on the card, against the Pallas kernels' VJP (interpret mode; the
+    merged kernel or the dq + dkv pair) at T = 962, bf16, dropout 0.1: each
+    gradient within 2 bf16 ulps of its largest value."""
+    _jax_bwd_mode(monkeypatch, mode, d)
     (q, k, v, w), xs = _bf16_qkv(d + 7, d, n=4)
     key = jax.random.PRNGKey(5)
     sm = d ** -0.5

@@ -219,10 +219,15 @@ def test_bench_flash_loads_another_checkout(tmp_path):
 def test_bench_flash_weights_a_gpt_step(monkeypatch):
     """per_step sums each kernel's launch time over 8 launches at each head
     dim, as a GPT TransFuser training step launches them."""
-    monkeypatch.setattr(bench_flash, "launch_ms",
-                        lambda d, p, device, flash: (d * (1 + p), 2.0 * d))
+    monkeypatch.setattr(
+        bench_flash, "launch_ms", lambda d, p, device, flash: dict(
+            fwd_ms=d * (1 + p), bwd_ms=2.0 * d, split_bwd_ms=3.0 * d,
+            dq_ms=1.0 * d, dkv_ms=1.5 * d))
     out = bench_flash.per_step(device="cpu")
     assert set(out) == {"p=0.0", "p=0.1"}
+    assert set(out["p=0.1"]) == {*bench_flash.MEASURES, "launch_ms"}
     assert out["p=0.0"]["fwd_ms"] == 8 * (16 + 32 + 64 + 128)
     assert out["p=0.1"]["fwd_ms"] == pytest.approx(8 * 240 * 1.1)
     assert out["p=0.1"]["bwd_ms"] == 8 * 2 * 240
+    assert out["p=0.1"]["split_bwd_ms"] == 8 * 3 * 240
+    assert out["p=0.0"]["dq_ms"] + out["p=0.0"]["dkv_ms"] == 8 * 2.5 * 240
