@@ -42,9 +42,11 @@ Phases, in order; any failure exits non-zero and prints no result:
               forward at every group size that differs, f32 and bf16,
               grouped A, two calls of each equal bit for bit;
             - the sequential selective-scan forward (variant="sequential")
-              against its plain loop and against the chunked forward on the
-              same inputs, its chunk-entry states against the plain states,
-              its gradient (through the chunked backward) against the
+              at batch 8 and 1 against its plain loop and against the
+              chunked forward on the same inputs, its chunk-entry states
+              against the plain states, every launch split (lanes per
+              channel x channels a lane x threads per block) with the same
+              states bit for bit, its gradient (through the chunked backward) against the
               chunked variant's, and reverse=True refused;
             - the roofline calibration chain, k multiplies (equal to the
               plain chain element for element) or k exponentials, at both
@@ -165,8 +167,10 @@ Phases, in order; any failure exits non-zero and prints no result:
 With --parent PATH, after the last phase, the flash forward, merged
 backward, split backward and each split kernel alone of the checkout at
 PATH are timed against this one's, per GPT training step, and its scan
-forward and backward per MambaFuser step and serving forward, in turns on
-this card (their numbers join the kernels line's rows 1-4, 6 and 9).  The line before the last is a JSON object with one
+forward, sequential forward and backward per MambaFuser step and serving
+forward, in turns on this card (their numbers join the kernels line's rows
+1-4, 6, 8 and 9), and the sequential kernel's states are held against
+PATH's on the same inputs.  The line before the last is a JSON object with one
 entry per kernel; the last line is {"ok": true, "device": {...}}.  TF32 is switched off for
 matmuls and convolutions, so the f32 comparisons are exact f32 on both
 sides; the bf16 serving path is unaffected by it.
@@ -927,14 +931,14 @@ def phase_scan_kernel(sfu_rate):
     return rows
 
 
-def scan_fwd_work(L, d, esize):
-    """The scan forward's work at BATCH rows: the bytes it must move (u,
-    dt, B, C and A read once, y and h_out written once), its f32 operations
-    and its exponentials."""
-    nbytes = (BATCH * L * d * (esize + 4 + 4) + 2 * BATCH * L * D_STATE * esize
-              + d * D_STATE * 4 + BATCH * D_STATE * d * 4)
-    return (nbytes, BATCH * L * d * (7 * D_STATE + 1),
-            BATCH * L * d * D_STATE)
+def scan_fwd_work(L, d, esize, batch=BATCH):
+    """The scan forward's work at ``batch`` rows: the bytes it must move
+    (u, dt, B, C and A read once, y and h_out written once), its f32
+    operations and its exponentials."""
+    nbytes = (batch * L * d * (esize + 4 + 4) + 2 * batch * L * D_STATE * esize
+              + d * D_STATE * 4 + batch * D_STATE * d * 4)
+    return (nbytes, batch * L * d * (7 * D_STATE + 1),
+            batch * L * d * D_STATE)
 
 
 def scan_inputs(gen, dtype, L, d, groups=0, batch=BATCH):
@@ -1132,11 +1136,16 @@ def scan_bwd_work(ss, u, A, h_in, sfu_rate):
 
 
 def phase_scan_seq(sfu_rate):
-    """The sequential forward (#8) at the scan shapes in f32 and bf16, with
-    B and C column slices of x_dbl, plus a grouped-A (G = 2) case: y and
-    h_out against its plain loop and against the chunked kernel (#6) on the
-    same inputs, within SCAN_RTOL of their largest value; h_in against the
-    plain chunk-entry states; y without h_in equal to y with it; in f32 the
+    """The sequential forward (#8) at the scan shapes in f32 and bf16, at
+    batch 8 and 1, with B and C column slices of x_dbl, plus a grouped-A (G
+    = 2) case: y and h_out against its plain loop and against the chunked
+    kernel (#6) on the same inputs, within SCAN_RTOL of their largest value;
+    h_in against the plain chunk-entry states; y without h_in equal to y
+    with it; every other launch split the kernel holds (lanes per channel x
+    channels a lane x threads per block) with h_out and h_in equal bit for
+    bit to the split
+    seq_launch picks (the same arithmetic a state, only y's order of
+    summation differs) and y within SCAN_RTOL of the plain loop; in f32 the
     gradients through SelectiveScan(variant="sequential") against
     variant="chunked" (the same backward kernel) within SEQ_GRAD_RTOL; and
     reverse=True refused.  Timed by CUDA events queued behind a spin kernel
@@ -1148,15 +1157,16 @@ def phase_scan_seq(sfu_rate):
     from deepsense6g_tii_tpu_torch.ops import selective_scan as ss
 
     gen = torch.Generator(device=DEVICE).manual_seed(4)
-    cases = [(dtype, L, d, 0) for dtype in (torch.float32, torch.bfloat16)
-             for L, d in SCAN_SHAPES]
-    cases += [(dtype, TOKENS, 256, 2)
+    cases = [(dtype, L, d, 0, b) for dtype in (torch.float32, torch.bfloat16)
+             for b in (BATCH, 1) for L, d in SCAN_SHAPES]
+    cases += [(dtype, TOKENS, 256, 2, BATCH)
               for dtype in (torch.float32, torch.bfloat16)]
+    splits = ss.SEQ_SPLITS
     rows = []
-    for dtype, L, d, groups in cases:
+    for dtype, L, d, groups, b in cases:
         dname = str(dtype).split(".")[1]
-        label = f"sequential scan {dname} L={L} d={d} G={groups}"
-        u, dt, A, B, C, dy = scan_inputs(gen, dtype, L, d, groups)
+        label = f"sequential scan {dname} b={b} L={L} d={d} G={groups}"
+        u, dt, A, B, C, dy = scan_inputs(gen, dtype, L, d, groups, b)
         y, h, h_in = ss._launch_seq(u, dt, A, B, C, True)
         y0, h0 = ss.selective_scan_fwd(u, dt, A, B, C, variant="sequential")
         cy, ch = ss.selective_scan_fwd(u, dt, A, B, C)
@@ -1171,7 +1181,20 @@ def phase_scan_seq(sfu_rate):
         rel = {k: rel_gap(a, b) for k, (a, b) in err.items()}
         check(all(v <= SCAN_RTOL for v in rel.values()),
               f"{label}: max |err| over max |ref| {rel} (rtol {SCAN_RTOL})")
-        row = dict(dtype=dname, L=L, d=d, groups=groups, rel_err=rel,
+        split = ss.seq_launch(b, d)
+        split_y = 0.0
+        for other in splits:
+            oy, oh, oh_in = ss._launch_seq(u, dt, A, B, C, True, other)
+            torch.cuda.synchronize()
+            check(torch.equal(oh, h) and torch.equal(oh_in, h_in),
+                  f"{label}: split {other} against {split}: h_out or h_in "
+                  f"differ")
+            split_y = max(split_y, rel_gap(oy, ry))
+            del oy, oh, oh_in
+        check(split_y <= SCAN_RTOL, f"{label}: y of the other splits "
+              f"{split_y:.3g} of max |plain| (rtol {SCAN_RTOL})")
+        row = dict(dtype=dname, batch=b, L=L, d=d, groups=groups, rel_err=rel,
+                   split=list(split), splits_y_rel_err=split_y,
                    max_abs_err=(y - ry).abs().max().item())
         if dtype == torch.float32:
             row["grad_rel_err"] = seq_grad_gap(ss, u, dt, A, B, C, dy)
@@ -1185,7 +1208,7 @@ def phase_scan_seq(sfu_rate):
         except ValueError:
             pass
         if not groups:
-            nbytes, flops, exps = scan_fwd_work(L, d, u.element_size())
+            nbytes, flops, exps = scan_fwd_work(L, d, u.element_size(), b)
             t_bytes = nbytes / PEAK_BYTES
             t_ops = flops / PEAK_FLOPS["float32"]
             row.update(
@@ -1232,11 +1255,11 @@ def phase_chain(fmul_rate, sfu_rate):
     chain element for element, the exp chain within CHAIN_EXP_RTOL; each
     length at least twice its bytes' time.  Timed by CUDA events queued
     behind a spin kernel (tools/timing.py), with the plain chain beside the
-    bound: the larger of the bytes and the f32 operations (a
-    multiply, or a multiply and an exponential, a step) at the data sheet's
-    f32 rate.  Printed beside it: the same operations at the SM's FMUL
-    issue rate (half the data sheet's FMA-counting rate) and the
-    exponentials at the SFU rate, and the rates the two lengths imply."""
+    bound (tools/scan_roofline.chain_bound_ms): the k FMULs an element at
+    the SMs' FMUL issue rate (half the data sheet's FMA-counting f32 rate)
+    and, for the exp chain, the k exponentials at the SFU rate beside them
+    (the larger of the two pipes), the bytes as the floor.  Printed beside
+    it: the rates the two lengths imply."""
     import torch
     from deepsense6g_tii_tpu_torch.tools import scan_roofline as sr
 
@@ -1258,22 +1281,21 @@ def phase_chain(fmul_rate, sfu_rate):
                 err = (got - ref).abs().max().item()
                 check(torch.equal(got, ref), f"chain mul k={k}: not equal to "
                       f"the plain chain (max |err| {err:.3g})")
-            ops = (2 if use_exp else 1) * k * n_el
-            t_bytes = sr.chain_bytes_ms(n_el)
-            t_ops = 1e3 * ops / PEAK_FLOPS["float32"]
+            bound = sr.chain_bound_ms(k, use_exp, n_el, fmul_rate, sfu_rate)
             row = dict(
                 op=what, k=k, max_abs_err=(got - ref).abs().max().item(),
                 rel_err=err if use_exp else 0.0,
                 ms=time_ms(lambda: sr.chain(x, k, use_exp)),
                 plain_ms=time_ms(lambda: sr.chain_reference(x, k, use_exp),
                                  iters=2, warmup=1),
-                bytes_ms=t_bytes, ops_ms=t_ops, bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations",
-                fmul_issue_ms=1e3 * k * n_el / fmul_rate,
-                exp_sfu_ms=1e3 * k * n_el / sfu_rate if use_exp else None)
-            check(row["ms"] >= 2 * t_bytes, f"chain {what} k={k}: "
+                bytes_ms=bound["bytes_ms"], ops_ms=bound["ops_ms"],
+                bound_ms=bound["bound_ms"], bound_by=bound["bound_by"],
+                fmul_issue_ms=bound["fmul_ms"], exp_sfu_ms=bound["exp_ms"])
+            row["share_of_bound"] = row["bound_ms"] / row["ms"]
+            check(row["ms"] >= 2 * row["bytes_ms"], f"chain {what} k={k}: "
                   f"{row['ms']:.4g} ms is less than twice its bytes' time "
-                  f"{t_bytes:.4g} ms: the calibration would be memory-bound")
+                  f"{row['bytes_ms']:.4g} ms: the calibration would be "
+                  f"memory-bound")
             rows.append(row)
             print("kernel scan_roofline_chain " + json.dumps(row))
             del got, ref
@@ -2751,9 +2773,11 @@ def phase_scan_parent(root):
     checkout at PATH against this checkout's, per MambaFuser step and
     serving forward (tools/bench_scan.per_step: the five scan shapes,
     bf16, each wrapper's every pass and partial sum, 16 launches at each
-    L = 962 shape and 3 at L = 5), timed on this card in the order parent,
-    change, change, parent.  Returns each side's mean of its two runs, or
-    None without a parent."""
+    L = 962 shape and 3 at L = 5; the sequential forward at B=8 and 1 as
+    if the serving forward ran it), timed on this card in the order parent,
+    change, change, parent; then the sequential kernel's states against
+    PATH's (seq_states_vs_parent).  Returns each side's mean of its two
+    runs, or None without a parent."""
     if not root:
         return None
     from deepsense6g_tii_tpu_torch.tools import bench_scan
@@ -2769,6 +2793,33 @@ def phase_scan_parent(root):
     print("scan per Mamba step and serving forward, parent vs change (bf16; "
           "parent, change, change, parent): " + json.dumps(
               {who: out[who] for who in ("parent", "change")}))
+    out["seq_states"] = seq_states_vs_parent(bench_scan.load_scan(root))
+    return out
+
+
+def seq_states_vs_parent(parent):
+    """The sequential forward's h_out and h_in against the parent
+    checkout's sequential kernel on the same inputs, at the scan shapes,
+    bf16 and f32, batch 8 and 1: whether they are equal bit for bit, and
+    their largest gap over the largest value; y's gap beside (its order of
+    summation may differ)."""
+    import torch
+    from deepsense6g_tii_tpu_torch.ops import selective_scan as ss
+    gen = torch.Generator(device=DEVICE).manual_seed(7)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for b in (BATCH, 1):
+            for L, d in SCAN_SHAPES:
+                u, dt, A, B, C, _ = scan_inputs(gen, dtype, L, d, 0, b)
+                mine = ss._launch_seq(u, dt, A, B, C, True)
+                theirs = parent._launch_seq(u, dt, A, B, C, True)
+                torch.cuda.synchronize()
+                out[f"{str(dtype).split('.')[1]} b={b} L={L} d={d}"] = {
+                    k: [torch.equal(m, t), rel_gap(m, t)]
+                    for k, m, t in zip(("y", "h_out", "h_in"), mine, theirs)}
+    equal = all(v[k][0] for v in out.values() for k in ("h_out", "h_in"))
+    print(f"sequential scan states against the parent's (equal bit for bit: "
+          f"{equal}): " + json.dumps(out))
     return out
 
 
@@ -3125,11 +3176,14 @@ def main(argv=None):
             **(scan_vs_parent(scan_parent_keys[name])
                if name in scan_parent_keys else {})})
     # #8 per serving forward, had the fusion stages and TimeMamba run the
-    # sequential variant (the shapes and launches of #6); #11 one launch at
-    # each chain length, mul and exp.  Their launches are the roofline
-    # tool's, the path that runs them.
-    seq_main = {(r["L"], r["d"]): r for r in seq_rows
-                if r["dtype"] == "bfloat16" and not r["groups"]}
+    # sequential variant (the shapes and launches of #6), at batch 8 and,
+    # beside it, batch 1 (#6 beside each, timed in the same phase); #11 one
+    # launch at each chain length, mul and exp.  Their launches are the
+    # roofline tool's, the path that runs them.
+    seq_main, seq_b1 = ({(r["L"], r["d"]): r for r in seq_rows
+                         if r["dtype"] == "bfloat16" and not r["groups"]
+                         and r["batch"] == b} for b in (BATCH, 1))
+    seq_keys = ("ms", "chunked_ms", "plain_ms", "bound_ms", "exp_sfu_ms")
     kernels.append({
         "name": ss.KERNEL_SEQ, "route": "cuda",
         "source": "deepsense6g_tii_tpu_torch/csrc/selective_scan_seq.cu",
@@ -3145,10 +3199,20 @@ def main(argv=None):
                                             "bytes_ms")
                      >= per_forward(seq_main, SCAN_LAUNCHES, "ops_ms")
                      else "operations"),
-        "library_ms": None})
+        "library_ms": None,
+        **{k: per_forward(seq_main, SCAN_LAUNCHES, k)
+           for k in ("chunked_ms", "exp_sfu_ms")},
+        "batch1": {k: per_forward(seq_b1, SCAN_LAUNCHES, k)
+                   for k in seq_keys},
+        "split": {f"b={r['batch']} L={r['L']} d={r['d']}": r["split"]
+                  for r in (*seq_main.values(), *seq_b1.values())},
+        **scan_vs_parent(("seq_per_serving_forward_b8_ms",
+                          "seq_per_serving_forward_b1_ms",
+                          "fwd_per_serving_forward_b8_ms",
+                          "fwd_per_serving_forward_b1_ms"))})
     print("sequential scan per serving forward: " + json.dumps(
-        {k: per_forward(seq_main, SCAN_LAUNCHES, k)
-         for k in ("ms", "chunked_ms", "plain_ms", "bound_ms", "exp_sfu_ms")}))
+        {f"b={b}": {k: per_forward(rows, SCAN_LAUNCHES, k) for k in seq_keys}
+         for b, rows in ((BATCH, seq_main), (1, seq_b1))}))
     from deepsense6g_tii_tpu_torch.tools import scan_roofline as sr
     kernels.append({
         "name": sr.KERNEL_CHAIN, "route": "cuda",

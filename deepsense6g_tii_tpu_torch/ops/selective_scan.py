@@ -23,8 +23,10 @@ the batch.
   pass runs each group from zero, a carry pass gives each group's entry
   state, and the output pass runs each group from it.
 - ``csrc/selective_scan_seq.cu`` computes the same, left to right only,
-  step by step (``variant="sequential"``, the JAX package's cross-check of
-  the chunked forward); its ``h_in`` feeds the same backward kernel.
+  step by step in one pass over L (``variant="sequential"``, the JAX
+  package's cross-check of the chunked forward), a channel's states spread
+  over lanes as :func:`seq_launch` splits them for each launch; its
+  ``h_in`` feeds the same backward kernel.
 - ``csrc/selective_scan_bwd.cu`` runs every chunk on its own: a first pass
   gives each chunk's gradient carry from zero, a carry pass the carry
   entering each chunk, and the main pass recomputes the chunk's states from
@@ -85,6 +87,31 @@ VARIANTS = ("chunked", "sequential")
 # of every split at each of the MambaFuser's shapes (PERF.md).
 FWD_TARGET_BLOCKS = 2 * 132
 FWD_MIN_GROUPS = 4
+# The sequential forward's launch split (csrc/selective_scan_seq.cu): lanes
+# per channel, channels a lane and threads per block, in the ranges the
+# kernel instantiates.  seq_launch takes the lane tile of SEQ_TILES with the
+# fewest shared-memory bytes a state and step whose threads still reach
+# SEQ_WARP_THREADS (about one warp for each sub-partition of an H100's 132
+# SMs: 528 x 32 = 16,896) for each channel a lane.  Chosen from timings of
+# every split at the MambaFuser's shapes and B = 1, 8, 16 (PERF.md).
+_SEQ = _build.header_constants("selective_scan_seq.cu")
+
+
+def _powers(lo: int, hi: int) -> tuple:
+    return tuple(1 << k for k in range(lo.bit_length() - 1, hi.bit_length()))
+
+
+SEQ_LANES = _powers(_SEQ["SEQ_LANES_MIN"], _SEQ["SEQ_LANES_MAX"])
+SEQ_LANE_CHANNELS = tuple(range(1, _SEQ["SEQ_LANE_CHANNELS_MAX"] + 1))
+SEQ_THREADS = _powers(_SEQ["SEQ_THREADS_MIN"], _SEQ["SEQ_THREADS_MAX"])
+SEQ_SPLITS = tuple((n, k, t) for n in SEQ_LANES for k in SEQ_LANE_CHANNELS
+                   for t in SEQ_THREADS)
+SEQ_SMS = 132
+SEQ_WARP_THREADS = 1 << 14
+# lane tiles (lanes per channel, channels a lane), from the fewest bytes a
+# state and step (8 / channels for B and C, 16 / states a lane for dt,
+# dt*u and the y partials) to the most threads
+SEQ_TILES = ((4, 2), (4, 1), (8, 1), (16, 1))
 
 
 def num_chunks(L: int) -> int:
@@ -102,6 +129,24 @@ def fwd_chunks_per_group(b: int, L: int, d: int) -> int:
     if want < FWD_MIN_GROUPS:
         return nc
     return -(-nc // min(want, nc))
+
+
+def seq_launch(b: int, d: int) -> tuple:
+    """(lanes per channel, channels a lane, threads per block) of a
+    sequential forward launch over b·d channels: the first lane tile of
+    SEQ_TILES whose b·d·lanes / channels threads reach SEQ_WARP_THREADS
+    times its channels a lane (the last tile where none does), in blocks of
+    the fewest threads of SEQ_THREADS where those blocks still fit one an
+    SM, else of the most.  The grid is (ceil(d / (threads · channels /
+    lanes)), b)."""
+    lanes, channels = next(
+        (tile for tile in SEQ_TILES
+         if b * d * tile[0] // tile[1] >= SEQ_WARP_THREADS * tile[1]),
+        SEQ_TILES[-1])
+    threads = SEQ_THREADS[0]
+    if b * -(-d // (threads * channels // lanes)) > SEQ_SMS:
+        threads = SEQ_THREADS[-1]
+    return lanes, channels, threads
 
 
 def fwd_groups(L: int, chunks_per_group: int) -> int:
@@ -477,7 +522,7 @@ _SIGNATURES = {
     "selective_scan_bwd": (BWD_LIBRARY, [_PTR] * 16 + [_INT] * 5 + [_LL] * 2
                            + [_INT] * 2 + [_PTR]),
     "selective_scan_seq": (SEQ_LIBRARY, [_PTR] * 8 + [_INT] * 5 + [_LL] * 2
-                           + [_INT] + [_PTR]),
+                           + [_INT] * 4 + [_PTR]),
 }
 
 
@@ -600,12 +645,19 @@ def _launch_fwd(u, dt, A, B, C, reverse: bool, save_states: bool,
     return y, h_out, h_in
 
 
-def _launch_seq(u, dt, A, B, C, save_states: bool):
+def _launch_seq(u, dt, A, B, C, save_states: bool, split=None):
     """The sequential forward kernel: (y, h_out, h_in) as
-    :func:`_launch_fwd` gives them, left to right."""
+    :func:`_launch_fwd` gives them, left to right.  ``split`` (lanes per
+    channel, channels a lane, threads per block) is :func:`seq_launch`'s by
+    default."""
+    b, _, d = u.shape
+    split = seq_launch(b, d) if split is None else tuple(split)
+    if split not in SEQ_SPLITS:
+        raise ValueError(f"sequential scan kernel takes a split (lanes, "
+                         f"channels, threads) in {SEQ_SPLITS}, got {split}")
     y, h_out, h_in = _fwd_outputs(u, dt, A, B, C, save_states)
     _launch("selective_scan_seq", KERNEL_SEQ, u.device,
-            *_fwd_args(u, dt, A, B, C, y, h_out, h_in))
+            *_fwd_args(u, dt, A, B, C, y, h_out, h_in), *split)
     return y, h_out, h_in
 
 

@@ -16,7 +16,14 @@ B and C, B and C column slices of one x_dbl, f32 dt and A): each wrapper
 timed alone at L = 962 and d = 128, 256, 512, 1024 and at L = 5, d = 1024,
 weighted as the model launches it (16 at each d at L = 962, 3 at L = 5):
 the backward per Mamba training step (B=8), the forward that writes h_in
-per training step (B=8), and the serving forward at B=8 and at B=1.
+per training step (B=8), and the serving forward at B=8 and at B=1, the
+chunked kernel's (``fwd``) and the sequential kernel's (``seq``: the same
+serving forward, had it run ``variant="sequential"``).
+
+``--seq-splits`` times the sequential kernel instead at every launch
+split it holds (lanes per channel x channels a lane x threads per block)
+at each scan shape and B = 1, 8, 16, beside the split ``seq_launch``
+picks; one JSON line.
 
 ``--root PATH`` (repeatable) times the kernels of the checkout at PATH
 instead of this one, each loaded under a name of its own and built under
@@ -44,6 +51,7 @@ B, L, N = 8, 962, 16
 # the MambaFuser's scans: (L, d) -> launches per forward or training step
 SHAPES = {(962, 128): 16, (962, 256): 16, (962, 512): 16, (962, 1024): 16,
           (5, 1024): 3}
+SEQ_BATCHES = (1, 8, 16)
 _PACKAGE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -96,7 +104,8 @@ def model_inputs(b, L_, d, seed=0, device="cuda"):
 def launch_ms(L_, d, device="cuda", scan=ss):
     """ms per call at one scan shape: {"bwd": backward at B=8 (every pass
     and the partials' sums), "fwd_h_in": forward writing h_in at B=8,
-    "fwd": serving forward at B=8, "fwd_b1": at B=1}."""
+    "fwd": serving forward at B=8, "fwd_b1": at B=1, "seq" and "seq_b1":
+    the sequential forward at B=8 and B=1}."""
     out = {}
     u, dt, A, Bm, C, dy = model_inputs(B, L_, d, device=device)
     _, _, h_in = scan._launch_fwd(u, dt, A, Bm, C, False, True)
@@ -104,11 +113,12 @@ def launch_ms(L_, d, device="cuda", scan=ss):
         u, dt, A, Bm, C, dy, h_in), device)
     out["fwd_h_in"] = timing.time_ms(lambda: scan._launch_fwd(
         u, dt, A, Bm, C, False, True), device)
-    out["fwd"] = timing.time_ms(lambda: scan.selective_scan_fwd(
-        u, dt, A, Bm, C), device)
-    u, dt, A, Bm, C, _ = model_inputs(1, L_, d, device=device)
-    out["fwd_b1"] = timing.time_ms(lambda: scan.selective_scan_fwd(
-        u, dt, A, Bm, C), device)
+    for suffix, b in (("", B), ("_b1", 1)):
+        u, dt, A, Bm, C, _ = model_inputs(b, L_, d, device=device)
+        out["fwd" + suffix] = timing.time_ms(lambda: scan.selective_scan_fwd(
+            u, dt, A, Bm, C), device)
+        out["seq" + suffix] = timing.time_ms(lambda: scan.selective_scan_fwd(
+            u, dt, A, Bm, C, variant="sequential"), device)
     return out
 
 
@@ -120,7 +130,9 @@ def weigh(ms):
     return {"bwd_per_mamba_step_ms": total("bwd"),
             "fwd_h_in_per_mamba_step_ms": total("fwd_h_in"),
             "fwd_per_serving_forward_b8_ms": total("fwd"),
-            "fwd_per_serving_forward_b1_ms": total("fwd_b1")}
+            "fwd_per_serving_forward_b1_ms": total("fwd_b1"),
+            "seq_per_serving_forward_b8_ms": total("seq"),
+            "seq_per_serving_forward_b1_ms": total("seq_b1")}
 
 
 def per_step(device="cuda", scan=ss):
@@ -131,15 +143,39 @@ def per_step(device="cuda", scan=ss):
             "launch_ms": {f"L={L_} d={d}": v for (L_, d), v in ms.items()}}
 
 
+def seq_splits(device="cuda", scan=ss):
+    """ms per call of the sequential kernel at every launch split it holds,
+    at each scan shape and B in SEQ_BATCHES: {"B=8 L=962 d=128": {"4x1x64":
+    ms, ..., "rule": "16x1x64"}}, a split written lanes x channels a lane x
+    threads."""
+    out = {}
+    for b in SEQ_BATCHES:
+        for L_, d in SHAPES:
+            u, dt, A, Bm, C, _ = model_inputs(b, L_, d, device=device)
+            row = {"x".join(map(str, split)): timing.time_ms(
+                lambda split=split: scan._launch_seq(u, dt, A, Bm, C, False,
+                                                     split), device)
+                for split in scan.SEQ_SPLITS}
+            row["rule"] = "x".join(map(str, scan.seq_launch(b, d)))
+            out[f"B={b} L={L_} d={d}"] = row
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("dims", nargs="*", type=int, default=[256, 1024])
     ap.add_argument("--root", action="append", default=None,
                     help="a checkout whose kernels to time (repeatable)")
+    ap.add_argument("--seq-splits", action="store_true",
+                    help="time the sequential kernel at every launch split")
     args = ap.parse_args(argv)
     timing.require_cuda("bench_scan")
     card = timing.card()
     print(f"card: {card}")
+    if args.seq_splits:
+        print(json.dumps({"card": card, "seq_splits": seq_splits()}),
+              flush=True)
+        return
     for root in args.root or [None]:
         scan = load_scan(root)
         where = os.path.abspath(root) if root else os.path.dirname(_PACKAGE)

@@ -66,8 +66,9 @@ B_, L_, D_, N_ = 16, 962, 1024, 16
 # - selective_scan_fwd.cu: dt*A', B*(dt u), the state FFMA and the y FFMA
 #   (4); y's two shuffle-adds a lane-step over its 4 states (0.5); dt*u once
 #   a channel-step (1/16).
-# - selective_scan_seq.cu: the same 4; y's 3 partial-sum adds and dt*u once
-#   a channel-step (4/16).
+# - selective_scan_seq.cu: the same 4; y's LPC - 1 partial-sum adds and
+#   dt*u once a channel-step (LPC / 16: 4/16 at this geometry, where
+#   ops/selective_scan.py::seq_launch takes LPC = 4 lanes a channel).
 # - selective_scan_bwd.cu: sweep 1, dt*A', a*h, the state FFMA, h*dy (4)
 #   and the dC channel sum (4 adds a lane-step: 1); sweep 2, g, dt*A', a*g,
 #   g*B, g*ah, *A, dA, g*dt*u (8), the dB channel sum (1) and the gb/gsa
@@ -140,6 +141,25 @@ def chain_bytes_ms(n_el: int) -> float:
     """The time of the chain's bytes (each element read and written once)
     at the card's memory rate."""
     return 1e3 * 8 * n_el / PEAK_BYTES
+
+
+def chain_bound_ms(k: int, use_exp: bool, n_el: int, fmul_rate: float,
+                   sfu_rate: float) -> dict:
+    """The least time of one chain launch over ``n_el`` elements: k FMULs
+    an element at ``fmul_rate``, the SMs' FMUL issue rate (one a lane and
+    clock: half the data sheet's f32 rate, which counts an FMA as two), and
+    for the exp chain k exponentials at ``sfu_rate``, the special-function
+    units' rate, beside them; the two pipes work side by side, so the larger
+    of the two counts, with the bytes (:func:`chain_bytes_ms`) as the
+    floor.  Returns the three times (``exp_ms`` None for the mul chain),
+    ``ops_ms`` (the larger of the pipes), ``bound_ms`` and ``bound_by``."""
+    bytes_ms = chain_bytes_ms(n_el)
+    fmul_ms = 1e3 * k * n_el / fmul_rate
+    exp_ms = 1e3 * k * n_el / sfu_rate if use_exp else None
+    ops_ms = max(fmul_ms, exp_ms or 0.0)
+    return {"bytes_ms": bytes_ms, "fmul_ms": fmul_ms, "exp_ms": exp_ms,
+            "ops_ms": ops_ms, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
 
 def calibrate(shape=CHAIN_SHAPE, k_lo=MUL_K[0], k_hi=MUL_K[1],

@@ -121,6 +121,49 @@ class TestChainWrapper:
             scan_roofline.chain(x, k, use_exp)
 
 
+class TestChainBound:
+    """The chain's bound, counted by hand over the tool's (4096, 8, 1024)
+    array: an FMUL issues once a lane and clock (33.5e12 a second on an
+    H100, half the data sheet's FMA-counting 67 TFLOP/s), an exponential on
+    the special-function units (4.22e12 a second), the two pipes side by
+    side, and 8 bytes an element at 3.35e12 bytes a second as the floor."""
+    N_EL, FMUL, SFU = 4096 * 8 * 1024, 33.5e12, 4.22e12
+
+    @pytest.mark.parametrize("k, use_exp, want, by", [
+        (1024, False, 1.0257, "operations"),   # 1024 FMULs: ~1.03 ms
+        (128, True, 1.0178, "operations"),     # 128 exps: ~1.02 ms
+        (8, False, 0.080130, "bytes"),         # 8 FMULs: the bytes' time
+        (1, True, 0.080130, "bytes")])
+    def test_hand_count(self, k, use_exp, want, by):
+        got = scan_roofline.chain_bound_ms(k, use_exp, self.N_EL, self.FMUL,
+                                           self.SFU)
+        assert got["bound_ms"] == pytest.approx(want, rel=1e-4)
+        assert got["bound_by"] == by
+        assert got["bytes_ms"] == pytest.approx(0.080130, rel=1e-4)
+        assert (got["exp_ms"] is None) == (not use_exp)
+
+    def test_exp_chain_overlaps_its_pipes(self):
+        """The exp chain's k FMULs run beside its k exponentials: the bound
+        is the larger of the two, not their sum."""
+        got = scan_roofline.chain_bound_ms(128, True, self.N_EL, self.FMUL,
+                                           self.SFU)
+        assert got["fmul_ms"] == pytest.approx(0.12822, rel=1e-4)
+        assert got["ops_ms"] == got["exp_ms"] == got["bound_ms"]
+
+    def test_four_chains_of_the_tool(self):
+        """The four chains the tool launches (1,280 FMULs and 160
+        exponentials an element in all) take at least ~2.55 ms, three
+        times the 0.849 ms that pricing every step at the data sheet's f32
+        rate gave."""
+        total = sum(scan_roofline.chain_bound_ms(
+            k, use_exp, self.N_EL, self.FMUL, self.SFU)["bound_ms"]
+            for use_exp, ks in ((False, scan_roofline.MUL_K),
+                                (True, scan_roofline.EXP_K)) for k in ks)
+        assert sum(scan_roofline.MUL_K) == 1280
+        assert sum(scan_roofline.EXP_K) == 160
+        assert total == pytest.approx(1.2822 + 1.2722, rel=1e-3)
+
+
 class TestCalibrate:
     def test_rate_arithmetic_on_stubbed_timings(self, monkeypatch):
         """rate = (k_hi - k_lo) * elements / (t_hi - t_lo), the times and

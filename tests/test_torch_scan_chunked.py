@@ -319,7 +319,8 @@ def test_bench_scan_loads_another_checkout(tmp_path):
 def test_bench_scan_weighs_a_mamba_step():
     """per-step totals: 16 launches at each L = 962 shape, 3 at L = 5."""
     from deepsense6g_tii_tpu_torch.tools import bench_scan
-    ms = {shape: {"bwd": L_ + d, "fwd_h_in": 1.0, "fwd": 2.0, "fwd_b1": 3.0}
+    ms = {shape: {"bwd": L_ + d, "fwd_h_in": 1.0, "fwd": 2.0, "fwd_b1": 3.0,
+                  "seq": 4.0, "seq_b1": 5.0}
           for shape in bench_scan.SHAPES for L_, d in [shape]}
     out = bench_scan.weigh(ms)
     assert out["bwd_per_mamba_step_ms"] == (
@@ -327,3 +328,5 @@ def test_bench_scan_weighs_a_mamba_step():
     assert out["fwd_h_in_per_mamba_step_ms"] == 67
     assert out["fwd_per_serving_forward_b8_ms"] == 134
     assert out["fwd_per_serving_forward_b1_ms"] == 201
+    assert out["seq_per_serving_forward_b8_ms"] == 268
+    assert out["seq_per_serving_forward_b1_ms"] == 335

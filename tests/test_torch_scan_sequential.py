@@ -6,11 +6,15 @@ port's own doubling scan, on the CPU.
 On a CPU tensor the port runs the plain loop over time,
 ``selective_scan_sequential_reference``; the CUDA kernel
 (csrc/selective_scan_seq.cu) is held against the same loop and against the
-chunked kernel on the card by chip_smoke.py.  Tolerances: against JAX rtol
+chunked kernel on the card by chip_smoke.py.  Its launch split
+(``seq_launch``: lanes per channel, threads per block) is plain Python and
+is checked here against the kernel's source.  Tolerances: against JAX rtol
 and atol 1e-4, the bound of tests/test_ops.py:45-46 (the two sides sum over
 the states in other orders); against the float64 loop 2e-5 (f32 rounding
 over 300 steps); f64 against f64, 1e-10.
 """
+
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -265,3 +269,112 @@ class TestKernelRoute:
         assert torch.isfinite(x[0].grad).all()
         assert _build.KERNEL_LAUNCHES == before
         assert ss.SEQ_LIBRARY in ss.LIBRARIES
+
+
+_SEQ = _build.header_constants("selective_scan_seq.cu")
+
+
+class TestLaunchRule:
+    @pytest.mark.parametrize("b", [1, 8, 16])
+    @pytest.mark.parametrize("d", [128, 256, 512, 1024])
+    def test_split_fits_the_kernel_and_covers_every_state(self, b, d):
+        """At each MambaFuser d_inner and B = 1, 8, 16: the lanes a channel
+        divide its 16 states, the block is one the kernel instantiates (a
+        whole number of warps and of lane groups, within its launch
+        bounds), and the grid (ceil(d / channels per block), b) gives each
+        (row, channel, state) to exactly one lane.  The lane tile is the
+        first of SEQ_TILES whose threads reach SEQ_WARP_THREADS for each
+        channel a lane."""
+        lanes, chans, threads = ss.seq_launch(b, d)
+        assert (lanes, chans, threads) in ss.SEQ_SPLITS
+        assert ss.D_STATE % lanes == 0 and threads % 32 == 0
+        assert threads % lanes == 0 and threads <= _SEQ["SEQ_SM_THREADS"]
+        cpb, npt = threads * chans // lanes, ss.D_STATE // lanes
+        tid = np.arange(threads)
+        covered = np.zeros((b, d, ss.D_STATE), int)
+        for row in range(b):                              # blockIdx.y
+            for blk in range(-(-d // cpb)):               # blockIdx.x
+                for k in range(chans):
+                    ch = blk * cpb + (tid // lanes) * chans + k
+                    keep = ch < d
+                    for j in range(npt):
+                        np.add.at(covered, (row, ch[keep],
+                                            (tid % lanes)[keep] * npt + j), 1)
+        assert (covered == 1).all()
+        reach = [t for t in ss.SEQ_TILES
+                 if b * d * t[0] // t[1] >= ss.SEQ_WARP_THREADS * t[1]]
+        assert (lanes, chans) == (reach[0] if reach else ss.SEQ_TILES[-1])
+
+    def test_constants_come_from_the_kernel_source(self):
+        """The splits the rule may pass are the ones the C entry dispatches
+        to an instantiation (lanes -> NPT = 16 / lanes, channels a lane ->
+        NCH, threads -> NT), read from the literals of the .cu file, and the
+        launch bounds are the ones the rule assumes."""
+        src = (_build.CSRC_DIR / "selective_scan_seq.cu").read_text()
+        assert ss.SEQ_LANES == tuple(
+            n for n in (1, 2, 4, 8, 16, 32)
+            if _SEQ["SEQ_LANES_MIN"] <= n <= _SEQ["SEQ_LANES_MAX"])
+        assert ss.SEQ_LANE_CHANNELS == tuple(
+            range(1, _SEQ["SEQ_LANE_CHANNELS_MAX"] + 1))
+        assert ss.SEQ_THREADS == tuple(
+            t for t in (32, 64, 128, 256, 512, 1024)
+            if _SEQ["SEQ_THREADS_MIN"] <= t <= _SEQ["SEQ_THREADS_MAX"])
+        cases = {
+            "lanes": (r"case (\d+): return launch_channels<T, (\d+)>",
+                      [(n, ss.D_STATE // n) for n in ss.SEQ_LANES]),
+            "channels": (r"case (\d+): return launch_threads<T, NPT, (\d+)>",
+                         [(k, k) for k in ss.SEQ_LANE_CHANNELS]),
+            "threads": (r"case (\d+): return launch<T, NPT, NCH, (\d+)>",
+                        [(t, t) for t in ss.SEQ_THREADS])}
+        for name, (pattern, want) in cases.items():
+            got = [tuple(map(int, m)) for m in re.findall(pattern, src)]
+            assert got == want, name
+        assert "__launch_bounds__(NT, SEQ_SM_THREADS / NT)" in src
+        assert all((n, k, t) in ss.SEQ_SPLITS for n, k in ss.SEQ_TILES
+                   for t in ss.SEQ_THREADS)
+        assert ss.D_STATE == 16 and ss.CHUNK % ss.SEQ_LANES[-1] == 0
+
+    @pytest.mark.parametrize("split", [(2, 1, 128), (4, 1, 32), (16, 3, 64),
+                                       (4, 128)])
+    def test_split_outside_the_kernel_is_refused(self, split):
+        x = [torch.from_numpy(a).to("meta") for a in _inputs(42, L=16, d=8)]
+        with pytest.raises(ValueError, match="split"):
+            ss._launch_seq(*x, False, split)
+
+
+def test_bench_scan_weighs_the_sequential_forward():
+    """seq_per_serving_forward_b8_ms and _b1_ms: each shape's sequential
+    time times its launches a serving forward (16 at each L = 962 shape,
+    3 at L = 5), beside the chunked forward's totals."""
+    from deepsense6g_tii_tpu_torch.tools import bench_scan
+    ms = {(L_, d): {"bwd": 0.0, "fwd_h_in": 0.0, "fwd": 1.0, "fwd_b1": 0.5,
+                    "seq": float(d), "seq_b1": L_ / 1000}
+          for L_, d in bench_scan.SHAPES}
+    out = bench_scan.weigh(ms)
+    assert out["seq_per_serving_forward_b8_ms"] == (
+        16 * (128 + 256 + 512 + 1024) + 3 * 1024)
+    assert out["seq_per_serving_forward_b1_ms"] == pytest.approx(
+        16 * 4 * 0.962 + 3 * 0.005)
+    assert out["fwd_per_serving_forward_b8_ms"] == 67
+    assert out["fwd_per_serving_forward_b1_ms"] == 33.5
+
+
+def test_bench_scan_times_every_split(monkeypatch):
+    """--seq-splits: every split the kernel holds at each shape and B = 1,
+    8, 16, and the one the rule picks (launches and times stubbed)."""
+    from deepsense6g_tii_tpu_torch.tools import bench_scan, timing
+    asked = []
+    monkeypatch.setattr(bench_scan, "SHAPES", {(70, 8): 16, (5, 24): 3})
+    monkeypatch.setattr(ss, "_launch_seq", lambda *a: asked.append(
+        (a[0].shape, a[5], a[6])))
+    monkeypatch.setattr(timing, "time_ms", lambda fn, device: fn() or 2.0)
+    out = bench_scan.seq_splits(device="cpu")
+    splits = ["x".join(map(str, split)) for split in ss.SEQ_SPLITS]
+    assert list(out) == [f"B={b} L={L_} d={d}" for b in (1, 8, 16)
+                         for L_, d in ((70, 8), (5, 24))]
+    for key, row in out.items():
+        b, d = int(key.split()[0][2:]), int(key.split()[2][2:])
+        assert row == {**{s_: 2.0 for s_ in splits},
+                       "rule": "x".join(map(str, ss.seq_launch(b, d)))}
+    assert len(asked) == 6 * len(splits) == 72
+    assert asked[0] == ((1, 70, 8), False, ss.SEQ_SPLITS[0])
