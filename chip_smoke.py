@@ -42,12 +42,11 @@ Phases, in order; any failure exits non-zero and prints no result:
               forward at every group size that differs, f32 and bf16,
               grouped A, two calls of each equal bit for bit;
             - the sequential selective-scan forward (variant="sequential")
-              at batch 8 and 1 against its plain loop and against the
-              chunked forward on the same inputs, its chunk-entry states
-              against the plain states, every launch split (lanes per
-              channel x channels a lane x threads per block) with the same
-              states bit for bit, its gradient (through the chunked backward) against the
-              chunked variant's, and reverse=True refused;
+              at batch 8 and 1 (and 16 at L = 962, d = 1024) against its
+              plain loop and against the chunked forward on the same
+              inputs, its chunk-entry states against the plain states, its
+              gradient (through the chunked backward) against the chunked
+              variant's, and reverse=True refused;
             - the roofline calibration chain, k multiplies (equal to the
               plain chain element for element) or k exponentials, at both
               chain lengths, each at least twice its bytes' time; the SASS
@@ -1137,16 +1136,13 @@ def scan_bwd_work(ss, u, A, h_in, sfu_rate):
 
 def phase_scan_seq(sfu_rate):
     """The sequential forward (#8) at the scan shapes in f32 and bf16, at
-    batch 8 and 1, with B and C column slices of x_dbl, plus a grouped-A (G
+    batch 8 and 1, and at batch 16, L = 962, d = 1024 (the roofline tool's
+    launch, two channels a lane: with the others, every launch split the
+    kernel holds), with B and C column slices of x_dbl, plus a grouped-A (G
     = 2) case: y and h_out against its plain loop and against the chunked
     kernel (#6) on the same inputs, within SCAN_RTOL of their largest value;
     h_in against the plain chunk-entry states; y without h_in equal to y
-    with it; every other launch split the kernel holds (lanes per channel x
-    channels a lane x threads per block) with h_out and h_in equal bit for
-    bit to the split
-    seq_launch picks (the same arithmetic a state, only y's order of
-    summation differs) and y within SCAN_RTOL of the plain loop; in f32 the
-    gradients through SelectiveScan(variant="sequential") against
+    with it; in f32 the gradients through SelectiveScan(variant="sequential") against
     variant="chunked" (the same backward kernel) within SEQ_GRAD_RTOL; and
     reverse=True refused.  Timed by CUDA events queued behind a spin kernel
     (tools/timing.py; the profiler's traces of this kernel dropped
@@ -1159,9 +1155,12 @@ def phase_scan_seq(sfu_rate):
     gen = torch.Generator(device=DEVICE).manual_seed(4)
     cases = [(dtype, L, d, 0, b) for dtype in (torch.float32, torch.bfloat16)
              for b in (BATCH, 1) for L, d in SCAN_SHAPES]
+    cases += [(dtype, TOKENS, 1024, 0, 2 * BATCH)
+              for dtype in (torch.float32, torch.bfloat16)]
     cases += [(dtype, TOKENS, 256, 2, BATCH)
               for dtype in (torch.float32, torch.bfloat16)]
-    splits = ss.SEQ_SPLITS
+    check({ss.seq_launch(b, d) for _, _, d, _, b in cases}
+          == set(ss.SEQ_SPLITS), "sequential scan: the cases miss a split")
     rows = []
     for dtype, L, d, groups, b in cases:
         dname = str(dtype).split(".")[1]
@@ -1181,20 +1180,8 @@ def phase_scan_seq(sfu_rate):
         rel = {k: rel_gap(a, b) for k, (a, b) in err.items()}
         check(all(v <= SCAN_RTOL for v in rel.values()),
               f"{label}: max |err| over max |ref| {rel} (rtol {SCAN_RTOL})")
-        split = ss.seq_launch(b, d)
-        split_y = 0.0
-        for other in splits:
-            oy, oh, oh_in = ss._launch_seq(u, dt, A, B, C, True, other)
-            torch.cuda.synchronize()
-            check(torch.equal(oh, h) and torch.equal(oh_in, h_in),
-                  f"{label}: split {other} against {split}: h_out or h_in "
-                  f"differ")
-            split_y = max(split_y, rel_gap(oy, ry))
-            del oy, oh, oh_in
-        check(split_y <= SCAN_RTOL, f"{label}: y of the other splits "
-              f"{split_y:.3g} of max |plain| (rtol {SCAN_RTOL})")
         row = dict(dtype=dname, batch=b, L=L, d=d, groups=groups, rel_err=rel,
-                   split=list(split), splits_y_rel_err=split_y,
+                   split=list(ss.seq_launch(b, d)),
                    max_abs_err=(y - ry).abs().max().item())
         if dtype == torch.float32:
             row["grad_rel_err"] = seq_grad_gap(ss, u, dt, A, B, C, dy)
@@ -2800,8 +2787,9 @@ def phase_scan_parent(root):
 def seq_states_vs_parent(parent):
     """The sequential forward's h_out and h_in against the parent
     checkout's sequential kernel on the same inputs, at the scan shapes,
-    bf16 and f32, batch 8 and 1: whether they are equal bit for bit, and
-    their largest gap over the largest value; y's gap beside (its order of
+    bf16 and f32, batch 8 and 1: held equal bit for bit (both kernels
+    compute a state by the same arithmetic), their largest gap over the
+    largest value printed; y's gap beside, not held (its order of
     summation may differ)."""
     import torch
     from deepsense6g_tii_tpu_torch.ops import selective_scan as ss
@@ -2820,6 +2808,8 @@ def seq_states_vs_parent(parent):
     equal = all(v[k][0] for v in out.values() for k in ("h_out", "h_in"))
     print(f"sequential scan states against the parent's (equal bit for bit: "
           f"{equal}): " + json.dumps(out))
+    check(equal, "sequential scan: h_out or h_in differ from the parent "
+          "kernel's")
     return out
 
 
@@ -3205,7 +3195,8 @@ def main(argv=None):
         "batch1": {k: per_forward(seq_b1, SCAN_LAUNCHES, k)
                    for k in seq_keys},
         "split": {f"b={r['batch']} L={r['L']} d={r['d']}": r["split"]
-                  for r in (*seq_main.values(), *seq_b1.values())},
+                  for r in seq_rows
+                  if r["dtype"] == "bfloat16" and not r["groups"]},
         **scan_vs_parent(("seq_per_serving_forward_b8_ms",
                           "seq_per_serving_forward_b1_ms",
                           "fwd_per_serving_forward_b8_ms",

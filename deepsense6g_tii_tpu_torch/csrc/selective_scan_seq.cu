@@ -41,9 +41,9 @@
 // Design.  A lane holds NPT = 16 / LPC states (LPC = 4, 8 or 16 lanes a
 // channel) of NCH channels (1 or 2), and a block of NT threads (64 or 128)
 // owns CPB = NT * NCH / LPC channels of one batch row; the caller picks
-// LPC, NCH and NT for each launch (ops/selective_scan.py::seq_launch), so
-// that b*d*LPC/NCH threads fill the card's SMs with warps where b*d allows
-// it.  The block walks L in tiles of TS steps (TS divides TL).  It loads
+// one of the five splits of SEQ_SPLITS for each launch
+// (ops/selective_scan.py::seq_launch), so that b*d*LPC/NCH threads fill
+// the card's SMs with warps where b*d allows it.  The block walks L in tiles of TS steps (TS divides TL).  It loads
 // the next tile's dt, u, B and C into registers (coalesced, each element
 // once a block, one pointer a tile, loads past L predicated off) while it
 // runs the current one from shared memory.  Each lane runs its steps in
@@ -73,23 +73,21 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+#include <utility>
+
 #include "selective_scan.cuh"
 
 namespace {
 
 using namespace sscan;
 
-// The launch split that ops/selective_scan.py::seq_launch passes to the C
-// entry (it reads these literals): lanes per channel, a power of two in
-// [SEQ_LANES_MIN, SEQ_LANES_MAX]; channels a lane, 1 to
-// SEQ_LANE_CHANNELS_MAX; threads per block, a power of two in
-// [SEQ_THREADS_MIN, SEQ_THREADS_MAX].  The launch bounds ask for
+// The launch splits that ops/selective_scan.py::seq_launch can pick, and
+// the only ones instantiated (it reads this table): {lanes per channel,
+// channels a lane, threads per block}.  The launch bounds ask for
 // SEQ_SM_THREADS threads an SM, at most 170 registers a thread.
-constexpr int SEQ_LANES_MIN = 4;
-constexpr int SEQ_LANES_MAX = 16;
-constexpr int SEQ_LANE_CHANNELS_MAX = 2;
-constexpr int SEQ_THREADS_MIN = 64;
-constexpr int SEQ_THREADS_MAX = 128;
+constexpr int SEQ_SPLITS[][3] = {
+    {16, 1, 64}, {16, 1, 128}, {8, 1, 128}, {4, 1, 128}, {4, 2, 128}};
 constexpr int SEQ_SM_THREADS = 384;
 
 struct Args {
@@ -97,11 +95,6 @@ struct Args {
   void *y, *h_out, *h_in;
   int batch, L, d, bg;
   long long bc_sb, bc_sl;
-};
-
-template <bool B>
-struct Flag {
-  static constexpr bool value = B;
 };
 
 template <int NPT, int NCH, int NT>
@@ -313,9 +306,9 @@ scan_seq_kernel(const T* __restrict__ u, const float* __restrict__ dt,
       load(t0 + TS);
     }
     if (steps == TS)
-      run(Flag<true>(), steps);
+      run(std::true_type(), steps);
     else
-      run(Flag<false>(), steps);
+      run(std::false_type(), steps);
     __syncthreads();
     // y: the LPC partials of each (step, channel) of the tile, in order
     float sums[RU];
@@ -361,34 +354,26 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <typename T, int NPT, int NCH>
-cudaError_t launch_threads(const Args& a, int threads, cudaStream_t stream) {
-  switch (threads) {
-    case 64: return launch<T, NPT, NCH, 64>(a, stream);
-    case 128: return launch<T, NPT, NCH, 128>(a, stream);
-  }
-  return cudaErrorInvalidValue;
-}
-
-template <typename T, int NPT>
-cudaError_t launch_channels(const Args& a, int channels, int threads,
-                            cudaStream_t stream) {
-  switch (channels) {
-    case 1: return launch_threads<T, NPT, 1>(a, threads, stream);
-    case 2: return launch_threads<T, NPT, 2>(a, threads, stream);
-  }
-  return cudaErrorInvalidValue;
+// the table's split (lanes, channels, threads), or an error
+template <typename T, size_t... I>
+cudaError_t launch_split(const Args& a, int lanes, int channels, int threads,
+                         cudaStream_t stream, std::index_sequence<I...>) {
+  cudaError_t e = cudaErrorInvalidValue;
+  (void)((lanes == SEQ_SPLITS[I][0] && channels == SEQ_SPLITS[I][1] &&
+          threads == SEQ_SPLITS[I][2] &&
+          (e = launch<T, N / SEQ_SPLITS[I][0], SEQ_SPLITS[I][1],
+                      SEQ_SPLITS[I][2]>(a, stream),
+           true)) ||
+         ...);
+  return e;
 }
 
 template <typename T>
 cudaError_t launch_split(const Args& a, int lanes, int channels, int threads,
                          cudaStream_t stream) {
-  switch (lanes) {
-    case 4: return launch_channels<T, 4>(a, channels, threads, stream);
-    case 8: return launch_channels<T, 2>(a, channels, threads, stream);
-    case 16: return launch_channels<T, 1>(a, channels, threads, stream);
-  }
-  return cudaErrorInvalidValue;
+  return launch_split<T>(
+      a, lanes, channels, threads, stream,
+      std::make_index_sequence<sizeof(SEQ_SPLITS) / sizeof(SEQ_SPLITS[0])>());
 }
 
 }  // namespace
@@ -400,9 +385,9 @@ cudaError_t launch_split(const Args& a, int lanes, int channels, int threads,
 // b*bc_batch_stride + t*bc_row_stride + k; y (batch, L, d) f32; h_out
 // (batch, n, d) f32; h_in null, or (batch, ceil(L / TL), n, d) f32.  n must
 // be 16 and groups must divide batch.  Then the launch split: lanes per
-// channel (4, 8 or 16), channels a lane (1 or 2) and threads per block (64
-// or 128).  Launches on `stream` without synchronising and returns
-// cudaGetLastError() of the launch.
+// channel, channels a lane and threads per block, one of SEQ_SPLITS (else
+// cudaErrorInvalidValue).  Launches on `stream` without synchronising and
+// returns cudaGetLastError() of the launch.
 extern "C" int selective_scan_seq(const void* u, const void* dt,
                                   const void* A, const void* B, const void* C,
                                   void* y, void* h_out, void* h_in,

@@ -28,7 +28,7 @@ import re
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Callable, Dict, Iterable, Sequence
+from typing import Callable, Dict, Iterable, Sequence, Tuple
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 
@@ -97,6 +97,18 @@ def header_constants(header: str) -> Dict[str, int]:
     buffers by, read from the one place the kernels state them."""
     return {k.decode(): int(v) for k, v in
             _CONSTEXPR.findall((CSRC_DIR / header).read_bytes())}
+
+
+def header_table(header: str, name: str) -> Tuple[Tuple[int, ...], ...]:
+    """The rows of the integer table ``constexpr int NAME[][k] = {{...},
+    ...};`` of ``csrc/<header>``."""
+    body = re.search(rb"constexpr\s+int\s+" + re.escape(name.encode())
+                     + rb"\s*\[\s*\]\s*\[\s*\d+\s*\]\s*=\s*\{(.*?)\};",
+                     (CSRC_DIR / header).read_bytes(), re.S)
+    if body is None:
+        raise KeyError(f"{name}: no integer table in csrc/{header}")
+    return tuple(tuple(int(v) for v in row.split(b","))
+                 for row in re.findall(rb"\{([\d\s,]+)\}", body.group(1)))
 
 
 def library_path(name: str) -> Path:

@@ -87,25 +87,16 @@ VARIANTS = ("chunked", "sequential")
 # of every split at each of the MambaFuser's shapes (PERF.md).
 FWD_TARGET_BLOCKS = 2 * 132
 FWD_MIN_GROUPS = 4
-# The sequential forward's launch split (csrc/selective_scan_seq.cu): lanes
-# per channel, channels a lane and threads per block, in the ranges the
-# kernel instantiates.  seq_launch takes the lane tile of SEQ_TILES with the
-# fewest shared-memory bytes a state and step whose threads still reach
-# SEQ_WARP_THREADS (about one warp for each sub-partition of an H100's 132
-# SMs: 528 x 32 = 16,896) for each channel a lane.  Chosen from timings of
-# every split at the MambaFuser's shapes and B = 1, 8, 16 (PERF.md).
-_SEQ = _build.header_constants("selective_scan_seq.cu")
-
-
-def _powers(lo: int, hi: int) -> tuple:
-    return tuple(1 << k for k in range(lo.bit_length() - 1, hi.bit_length()))
-
-
-SEQ_LANES = _powers(_SEQ["SEQ_LANES_MIN"], _SEQ["SEQ_LANES_MAX"])
-SEQ_LANE_CHANNELS = tuple(range(1, _SEQ["SEQ_LANE_CHANNELS_MAX"] + 1))
-SEQ_THREADS = _powers(_SEQ["SEQ_THREADS_MIN"], _SEQ["SEQ_THREADS_MAX"])
-SEQ_SPLITS = tuple((n, k, t) for n in SEQ_LANES for k in SEQ_LANE_CHANNELS
-                   for t in SEQ_THREADS)
+# The sequential forward's launch splits (lanes per channel, channels a
+# lane, threads per block): the table of the ones csrc/selective_scan_seq.cu
+# instantiates, which are those seq_launch can pick.  seq_launch takes the
+# lane tile of SEQ_TILES with the fewest shared-memory bytes a state and
+# step whose threads still reach SEQ_WARP_THREADS for each channel a lane.
+# 2^14 is the threshold that timings of every lane split at the
+# MambaFuser's shapes and B = 1, 8, 16 chose on an NVIDIA H100 80GB HBM3
+# (PERF.md); SEQ_SMS is that card's SM count, which the rule was fitted to.
+SEQ_SPLITS = _build.header_table("selective_scan_seq.cu", "SEQ_SPLITS")
+SEQ_THREADS = tuple(sorted({t for _, _, t in SEQ_SPLITS}))
 SEQ_SMS = 132
 SEQ_WARP_THREADS = 1 << 14
 # lane tiles (lanes per channel, channels a lane), from the fewest bytes a
@@ -645,19 +636,15 @@ def _launch_fwd(u, dt, A, B, C, reverse: bool, save_states: bool,
     return y, h_out, h_in
 
 
-def _launch_seq(u, dt, A, B, C, save_states: bool, split=None):
+def _launch_seq(u, dt, A, B, C, save_states: bool):
     """The sequential forward kernel: (y, h_out, h_in) as
-    :func:`_launch_fwd` gives them, left to right.  ``split`` (lanes per
-    channel, channels a lane, threads per block) is :func:`seq_launch`'s by
-    default."""
+    :func:`_launch_fwd` gives them, left to right, in the launch split of
+    :func:`seq_launch`."""
     b, _, d = u.shape
-    split = seq_launch(b, d) if split is None else tuple(split)
-    if split not in SEQ_SPLITS:
-        raise ValueError(f"sequential scan kernel takes a split (lanes, "
-                         f"channels, threads) in {SEQ_SPLITS}, got {split}")
     y, h_out, h_in = _fwd_outputs(u, dt, A, B, C, save_states)
     _launch("selective_scan_seq", KERNEL_SEQ, u.device,
-            *_fwd_args(u, dt, A, B, C, y, h_out, h_in), *split)
+            *_fwd_args(u, dt, A, B, C, y, h_out, h_in),
+            *seq_launch(b, d))
     return y, h_out, h_in
 
 

@@ -20,11 +20,6 @@ per training step (B=8), and the serving forward at B=8 and at B=1, the
 chunked kernel's (``fwd``) and the sequential kernel's (``seq``: the same
 serving forward, had it run ``variant="sequential"``).
 
-``--seq-splits`` times the sequential kernel instead at every launch
-split it holds (lanes per channel x channels a lane x threads per block)
-at each scan shape and B = 1, 8, 16, beside the split ``seq_launch``
-picks; one JSON line.
-
 ``--root PATH`` (repeatable) times the kernels of the checkout at PATH
 instead of this one, each loaded under a name of its own and built under
 its own root, so that two checkouts are timed in one process on one card:
@@ -51,7 +46,6 @@ B, L, N = 8, 962, 16
 # the MambaFuser's scans: (L, d) -> launches per forward or training step
 SHAPES = {(962, 128): 16, (962, 256): 16, (962, 512): 16, (962, 1024): 16,
           (5, 1024): 3}
-SEQ_BATCHES = (1, 8, 16)
 _PACKAGE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -143,39 +137,15 @@ def per_step(device="cuda", scan=ss):
             "launch_ms": {f"L={L_} d={d}": v for (L_, d), v in ms.items()}}
 
 
-def seq_splits(device="cuda", scan=ss):
-    """ms per call of the sequential kernel at every launch split it holds,
-    at each scan shape and B in SEQ_BATCHES: {"B=8 L=962 d=128": {"4x1x64":
-    ms, ..., "rule": "16x1x64"}}, a split written lanes x channels a lane x
-    threads."""
-    out = {}
-    for b in SEQ_BATCHES:
-        for L_, d in SHAPES:
-            u, dt, A, Bm, C, _ = model_inputs(b, L_, d, device=device)
-            row = {"x".join(map(str, split)): timing.time_ms(
-                lambda split=split: scan._launch_seq(u, dt, A, Bm, C, False,
-                                                     split), device)
-                for split in scan.SEQ_SPLITS}
-            row["rule"] = "x".join(map(str, scan.seq_launch(b, d)))
-            out[f"B={b} L={L_} d={d}"] = row
-    return out
-
-
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("dims", nargs="*", type=int, default=[256, 1024])
     ap.add_argument("--root", action="append", default=None,
                     help="a checkout whose kernels to time (repeatable)")
-    ap.add_argument("--seq-splits", action="store_true",
-                    help="time the sequential kernel at every launch split")
     args = ap.parse_args(argv)
     timing.require_cuda("bench_scan")
     card = timing.card()
     print(f"card: {card}")
-    if args.seq_splits:
-        print(json.dumps({"card": card, "seq_splits": seq_splits()}),
-              flush=True)
-        return
     for root in args.root or [None]:
         scan = load_scan(root)
         where = os.path.abspath(root) if root else os.path.dirname(_PACKAGE)

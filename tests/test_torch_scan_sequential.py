@@ -306,40 +306,55 @@ class TestLaunchRule:
         assert (lanes, chans) == (reach[0] if reach else ss.SEQ_TILES[-1])
 
     def test_constants_come_from_the_kernel_source(self):
-        """The splits the rule may pass are the ones the C entry dispatches
+        """The splits the rule may pass are the table the C entry dispatches
         to an instantiation (lanes -> NPT = 16 / lanes, channels a lane ->
-        NCH, threads -> NT), read from the literals of the .cu file, and the
-        launch bounds are the ones the rule assumes."""
+        NCH, threads -> NT), read from the .cu file, and the launch bounds
+        are the ones the rule assumes."""
         src = (_build.CSRC_DIR / "selective_scan_seq.cu").read_text()
-        assert ss.SEQ_LANES == tuple(
-            n for n in (1, 2, 4, 8, 16, 32)
-            if _SEQ["SEQ_LANES_MIN"] <= n <= _SEQ["SEQ_LANES_MAX"])
-        assert ss.SEQ_LANE_CHANNELS == tuple(
-            range(1, _SEQ["SEQ_LANE_CHANNELS_MAX"] + 1))
-        assert ss.SEQ_THREADS == tuple(
-            t for t in (32, 64, 128, 256, 512, 1024)
-            if _SEQ["SEQ_THREADS_MIN"] <= t <= _SEQ["SEQ_THREADS_MAX"])
-        cases = {
-            "lanes": (r"case (\d+): return launch_channels<T, (\d+)>",
-                      [(n, ss.D_STATE // n) for n in ss.SEQ_LANES]),
-            "channels": (r"case (\d+): return launch_threads<T, NPT, (\d+)>",
-                         [(k, k) for k in ss.SEQ_LANE_CHANNELS]),
-            "threads": (r"case (\d+): return launch<T, NPT, NCH, (\d+)>",
-                        [(t, t) for t in ss.SEQ_THREADS])}
-        for name, (pattern, want) in cases.items():
-            got = [tuple(map(int, m)) for m in re.findall(pattern, src)]
-            assert got == want, name
+        table = re.search(r"constexpr int SEQ_SPLITS\[\]\[3\] = \{(.*?)\};",
+                          src, re.S).group(1)
+        assert ss.SEQ_SPLITS == tuple(
+            tuple(map(int, row)) for row in
+            re.findall(r"\{(\d+), (\d+), (\d+)\}", table))
+        assert ("launch<T, N / SEQ_SPLITS[I][0], SEQ_SPLITS[I][1],\n"
+                "                      SEQ_SPLITS[I][2]>") in src
         assert "__launch_bounds__(NT, SEQ_SM_THREADS / NT)" in src
-        assert all((n, k, t) in ss.SEQ_SPLITS for n, k in ss.SEQ_TILES
-                   for t in ss.SEQ_THREADS)
-        assert ss.D_STATE == 16 and ss.CHUNK % ss.SEQ_LANES[-1] == 0
+        assert ss.SEQ_THREADS == tuple(sorted({t for *_, t in ss.SEQ_SPLITS}))
+        assert set(ss.SEQ_TILES) == {(n, k) for n, k, _ in ss.SEQ_SPLITS}
+        assert ss.D_STATE == 16 and ss.CHUNK % max(ss.SEQ_TILES)[0] == 0
 
-    @pytest.mark.parametrize("split", [(2, 1, 128), (4, 1, 32), (16, 3, 64),
-                                       (4, 128)])
-    def test_split_outside_the_kernel_is_refused(self, split):
-        x = [torch.from_numpy(a).to("meta") for a in _inputs(42, L=16, d=8)]
-        with pytest.raises(ValueError, match="split"):
-            ss._launch_seq(*x, False, split)
+    @pytest.mark.parametrize("split", ss.SEQ_SPLITS,
+                             ids=lambda s_: "x".join(map(str, s_)))
+    def test_every_instantiated_split_is_picked(self, split):
+        """Each split the kernel instantiates is the rule's at some
+        MambaFuser d_inner and B = 1, 8, 16: none is built for nothing."""
+        assert split in {ss.seq_launch(b, d) for b in (1, 8, 16)
+                         for d in (128, 256, 512, 1024)}
+
+    @pytest.mark.parametrize("b,d", [(1, 128), (8, 256), (16, 1024)])
+    def test_launcher_passes_the_rules_split(self, monkeypatch, b, d):
+        """_launch_seq hands the C entry seq_launch(b, d) after the
+        forward's shared arguments (outputs and the launch stubbed)."""
+        calls = []
+        monkeypatch.setattr(ss, "_fwd_outputs", lambda *a: (None,) * 3)
+        monkeypatch.setattr(ss, "_fwd_args", lambda *a: ("args",))
+        monkeypatch.setattr(ss, "_launch", lambda *a: calls.append(a))
+        u = torch.empty((b, 5, d), device="meta")
+        ss._launch_seq(u, u, None, None, None, False)
+        assert calls == [("selective_scan_seq", ss.KERNEL_SEQ, u.device,
+                          "args", *ss.seq_launch(b, d))]
+
+
+def test_header_table_reads_a_kernels_table(monkeypatch, tmp_path):
+    """_build.header_table: each row of a constexpr int table, whatever
+    its spacing; a missing table raises."""
+    (tmp_path / "k.cu").write_text(
+        "constexpr int X = 3;\nconstexpr int T[][2] = {\n    {1, 2},"
+        "{30,4}, { 5 , 60 }};\n")
+    monkeypatch.setattr(_build, "CSRC_DIR", tmp_path)
+    assert _build.header_table("k.cu", "T") == ((1, 2), (30, 4), (5, 60))
+    with pytest.raises(KeyError, match="Y"):
+        _build.header_table("k.cu", "Y")
 
 
 def test_bench_scan_weighs_the_sequential_forward():
@@ -357,24 +372,3 @@ def test_bench_scan_weighs_the_sequential_forward():
         16 * 4 * 0.962 + 3 * 0.005)
     assert out["fwd_per_serving_forward_b8_ms"] == 67
     assert out["fwd_per_serving_forward_b1_ms"] == 33.5
-
-
-def test_bench_scan_times_every_split(monkeypatch):
-    """--seq-splits: every split the kernel holds at each shape and B = 1,
-    8, 16, and the one the rule picks (launches and times stubbed)."""
-    from deepsense6g_tii_tpu_torch.tools import bench_scan, timing
-    asked = []
-    monkeypatch.setattr(bench_scan, "SHAPES", {(70, 8): 16, (5, 24): 3})
-    monkeypatch.setattr(ss, "_launch_seq", lambda *a: asked.append(
-        (a[0].shape, a[5], a[6])))
-    monkeypatch.setattr(timing, "time_ms", lambda fn, device: fn() or 2.0)
-    out = bench_scan.seq_splits(device="cpu")
-    splits = ["x".join(map(str, split)) for split in ss.SEQ_SPLITS]
-    assert list(out) == [f"B={b} L={L_} d={d}" for b in (1, 8, 16)
-                         for L_, d in ((70, 8), (5, 24))]
-    for key, row in out.items():
-        b, d = int(key.split()[0][2:]), int(key.split()[2][2:])
-        assert row == {**{s_: 2.0 for s_ in splits},
-                       "rule": "x".join(map(str, ss.seq_launch(b, d)))}
-    assert len(asked) == 6 * len(splits) == 72
-    assert asked[0] == ((1, 70, 8), False, ss.SEQ_SPLITS[0])
