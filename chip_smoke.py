@@ -10,7 +10,8 @@ Phases, in order; any failure exits non-zero and prints no result:
 
 1. device   CUDA must be present; prints the card's name and power limit.
 2. build    compiles every CUDA kernel of the port from csrc/ with nvcc
-            (one process per source, all started together), prints ptxas's
+            (one process per source, all started together) and the native
+            C++ data loader with g++, prints ptxas's
             registers and spills, and checks the SASS (cuobjdump -sass):
             every head-dim instantiation of the bf16 flash forward, merged
             backward and split pair (dq, dk/dv) holds tensor-core
@@ -106,6 +107,25 @@ Phases, in order; any failure exits non-zero and prints no result:
             backwards a step.  Prints each epoch's samples/s, share of the
             epoch spent waiting for data, peak memory and read-backs, and
             the loader's ms a batch and the camera reader's ms a frame.
+8b. cache   the pre-featurized data path on the cli phase's tree: the train
+            CLI with --cache_dir build/cli/cache trains the full-width
+            MambaFuser one epoch and validates (the train and validation
+            sets featurized into memmaps, every cloud through the native
+            C++ loader, counted; 67 scan forwards and 67 backwards a step),
+            then a second main finds the cache (the manifest's mtime
+            unchanged, no cloud decoded); each run's samples/s and
+            data-wait share beside the cli phase's uncached epochs; ms a
+            batch of 8 for CachedDataset+DataLoader and CachedBatchLoader
+            beside the decode loader; a CachedBatchLoader batch (uint8 image
+            and lidar, radar float16, and again with a uint8-radar cache)
+            against the same rows upcast on the host: the MambaFuser's
+            eval logits and first train loss bit-equal, the dtypes the
+            engine's copy put on the card, and one batch's copy (CUDA
+            events) compact against float32; native BEV maps equal to the
+            Python path's for every cloud of the tree; bench_io at 16
+            samples; the convergence smoke (full width, bf16, B=8, 40 steps:
+            the loss halves); the DBA regression at its small geometry with
+            the kernels (the JAX slow test's thresholds).
 9. roofline  the kernel-tool path: python -m deepsense6g_tii_tpu_torch.tools.
             scan_roofline's main (the chain calibration, the chunked and
             sequential scan forwards and the backward at B=16, L=962,
@@ -322,6 +342,15 @@ ATTN_F64_RTOL = 1e-5        # attention kernels against f64, of max |ref|
 CLI_FRAME = (540, 960)
 CLI_SPLITS = (8, 4, 4)
 CLI_BATCH, CLI_EPOCHS, CLI_GPT_LAYERS = 8, 2, 2
+# the cache phase: bench_io's samples; the convergence smoke (steps, batch,
+# lr) and its bar, the JAX tool's: the loss at least halves; the DBA
+# regression's bars, tests/test_dba_regression.py's: the random floor below
+# DBA_FLOOR_MAX, raw and EMA DBA at least DBA_MIN, EMA no worse than raw by
+# DBA_EMA_SLACK, the last three of the curve above its first three by
+# DBA_CURVE_RISE
+BENCH_IO_SAMPLES = 16
+CONVERGE_STEPS, CONVERGE_BATCH, CONVERGE_LR = 40, 8, 1e-4
+DBA_FLOOR_MAX, DBA_MIN, DBA_EMA_SLACK, DBA_CURVE_RISE = 0.3, 0.8, 0.02, 0.3
 # the serve phase: serve.main's request batch and latency requests
 SERVE_BATCH, SERVE_ITERS = 8, 10
 # the 30to5 phase's training steps, MambaFuser and GPT TransFuser
@@ -454,6 +483,13 @@ def phase_build():
     t0 = time.perf_counter()
     logs = _build.build(kernels)
     print(f"build: {kernels} in {time.perf_counter() - t0:.1f} s")
+    # the native PLY/BEV loader (host C++, g++), before any phase reads
+    # a cloud, so no timed loader pays for its build
+    from deepsense6g_tii_tpu_torch.runtime import native
+    t0 = time.perf_counter()
+    check(native.available(), "the native loader did not build")
+    print(f"build: native loader {native.library_path().name} in "
+          f"{time.perf_counter() - t0:.1f} s")
     for name, log in logs.items():
         print(f"  {name} ptxas (registers, spill stores, spill loads) a "
               f"kernel: {json.dumps(ptxas_usage(log))}")
@@ -1766,6 +1802,255 @@ def phase_cli(card):
     return result
 
 
+def compact_vs_host(card, cache_dir, ru8_dir):
+    """A compact batch (CachedBatchLoader: uint8 image and lidar, radar in
+    float16 or uint8) against the same rows as CachedDataset upcasts them
+    on the host, through the full-width MambaFuser on the card: the eval
+    step's logits and the first train step's loss bit-equal (the steps
+    upcast on the card).  Also the dtypes the engine's copy puts on the
+    card, and one batch's copy time, compact against float32."""
+    import torch
+    from deepsense6g_tii_tpu_torch.data.cache import (CachedBatchLoader,
+                                                      CachedDataset)
+    from deepsense6g_tii_tpu_torch.data.loader import collate
+    from deepsense6g_tii_tpu_torch.models.fuser import BeamFuser
+    from deepsense6g_tii_tpu_torch.serve import mambafuser_config
+    from deepsense6g_tii_tpu_torch.tools import timing
+    from deepsense6g_tii_tpu_torch.train.engine import (DEVICE_KEYS, Engine,
+                                                        TrainOptions)
+    from deepsense6g_tii_tpu_torch.train.state import create_train_state
+    from deepsense6g_tii_tpu_torch.train.steps import (make_eval_step,
+                                                       make_train_step)
+
+    cfg = mambafuser_config()
+    out = {}
+
+    def seeded():
+        model = BeamFuser(cfg, device=DEVICE,
+                          generator=torch.Generator().manual_seed(0))
+        return model, create_train_state(model)
+
+    model, state = seeded()
+    eval_step = make_eval_step(model, cfg, state, device=DEVICE)
+    logits = []
+    hook = model.register_forward_hook(
+        lambda mod, args, res: logits.append(res.detach().clone()))
+    for name, d in (("radar float16", cache_dir), ("radar uint8", ru8_dir)):
+        compact = next(iter(CachedBatchLoader(d, CLI_BATCH)))
+        host = collate([CachedDataset(d)[i] for i in range(CLI_BATCH)])
+        want = {"image": "uint8", "lidar": "uint8",
+                "radar": "uint8" if d == ru8_dir else "float16"}
+        got = {k: str(compact[k].dtype) for k in want}
+        check(got == want, f"cache {name}: compact batch dtypes {got}, "
+              f"expected {want}")
+        logits.clear()
+        eval_step(compact)
+        eval_step(host)
+        check(torch.equal(logits[0], logits[1]),
+              f"cache {name}: eval logits of the compact batch differ from "
+              f"the host-upcast batch's by "
+              f"{(logits[0].float() - logits[1].float()).abs().max().item()}")
+        out[name] = {"eval_logits_equal": True,
+                     "max_abs_logit": logits[0].float().abs().max().item()}
+        if d == cache_dir:
+            losses = []
+            for batch in (compact, host):
+                m, st = seeded()
+                step = make_train_step(m, cfg, st, use_ema=True,
+                                       device=DEVICE)
+                losses.append(step(batch, 1e-4)["loss"].item())
+                del m, st, step
+            check(losses[0] == losses[1], f"cache {name}: first train loss "
+                  f"{losses[0]!r} (compact) against {losses[1]!r} (host)")
+            out[name]["first_loss"] = losses[0]
+            engine = Engine(model, cfg, TrainOptions(
+                logdir=os.path.join(REPO, "build", "cli", "cache_engine")),
+                device=DEVICE)
+            dev, event = engine._to_device(compact)
+            if event is not None:
+                event.synchronize()
+            out["dtypes_on_card"] = {k: str(t.dtype).removeprefix("torch.")
+                                     for k, t in dev.items()}
+            check(all(out["dtypes_on_card"][k] == v for k, v in want.items()),
+                  f"cache: the engine put {out['dtypes_on_card']} on the "
+                  f"card, expected the storage dtypes {want}")
+            out["h2d"] = {
+                kind: timing.h2d({k: b[k] for k in DEVICE_KEYS if k in b},
+                                 DEVICE)
+                for kind, b in (("compact", compact), ("f32", host))}
+        torch.cuda.empty_cache()
+    hook.remove()
+    print(f"cache compact batch on {card}: " + json.dumps(out))
+    return out
+
+
+def phase_cache(card, cli):
+    """The pre-featurized data path on the cli phase's tree: python -m
+    deepsense6g_tii_tpu_torch.cli.train --cache_dir through its main for
+    one epoch and validation on the full-width MambaFuser (the train and
+    validation sets featurized into build/cli/cache, every cloud through
+    the native loader; 67 scan forwards and 67 backwards a step), then a
+    second main that finds the cache and builds nothing; the readers' ms a
+    batch beside the cli phase's decode loader; compact batches against
+    host-upcast ones on the card (compact_vs_host); native BEV maps equal
+    the Python path's; bench_io, the convergence smoke and the DBA
+    regression."""
+    import shutil
+    import numpy as np
+    import torch
+    from deepsense6g_tii_tpu_torch.config import GlobalConfig
+    from deepsense6g_tii_tpu_torch.data import cache as dcache
+    from deepsense6g_tii_tpu_torch.data import features as F
+    from deepsense6g_tii_tpu_torch.data.dataset import build_train_val_sets
+    from deepsense6g_tii_tpu_torch.data.loader import DataLoader
+    from deepsense6g_tii_tpu_torch.ops import selective_scan as ss
+    from deepsense6g_tii_tpu_torch.runtime import native
+    from deepsense6g_tii_tpu_torch.serve import mambafuser_config
+    from deepsense6g_tii_tpu_torch.tools import (bench_io, convergence_smoke,
+                                                 dba_regression)
+    from deepsense6g_tii_tpu_torch.utils import ply
+
+    base = os.path.join(REPO, "build", "cli")
+    root = os.path.join(base, "data")
+    cache_dir = os.path.join(base, "cache")
+    check(native.available(), "cache: the native loader did not build")
+    n_scan = sum(SCAN_LAUNCHES.values())
+    expect = {ss.KERNEL: n_scan, ss.KERNEL_BWD: n_scan}
+    result = {"native": True}
+
+    # the CLI through the cache: a first main featurizes, a second finds it
+    builds = []
+    real_build = dcache.build_cache
+
+    def timed_build(*a, **k):
+        t0 = time.perf_counter()
+        out = real_build(*a, **k)
+        builds.append(time.perf_counter() - t0)
+        return out
+
+    manifest = os.path.join(cache_dir, "train", "manifest.json")
+    legs = {}
+    dcache.build_cache = timed_build
+    try:
+        for leg in ("build", "reuse"):
+            builds.clear()
+            native.reset_calls()
+            counts = []
+            logdir = os.path.join(base, f"cache_{leg}")
+            mtime = (os.stat(manifest).st_mtime_ns
+                     if os.path.exists(manifest) else None)
+            torch.cuda.synchronize()
+            run_s = cli_run(["--data_root", root, "--augmentation", "0",
+                             "--batch_size", str(CLI_BATCH),
+                             "--num_workers", "8", "--ema", "1",
+                             "--epochs", "1", "--cache_dir", cache_dir,
+                             "--logdir", logdir], counts, f"cache {leg}")
+            with open(os.path.join(logdir, "recent.log")) as f:
+                rec = json.load(f)
+            check(rec["epoch"] == 1 and np.isfinite(rec["train_loss"]).all()
+                  and np.isfinite(rec["val_loss"]).all(),
+                  f"cache {leg}: run record {rec}")
+            check(counts and all(c == expect for c in counts),
+                  f"cache {leg}: launches a step {counts}, expected "
+                  f"exactly {expect}")
+            legs[leg] = {"run_s": run_s, "build_s": list(builds),
+                         "native_clouds": native.CALLS.get(
+                             "batch_ply_to_bev", 0),
+                         "launches_per_step": counts[0],
+                         "train_loss": rec["train_loss"],
+                         "val_loss": rec["val_loss"], "DBA": rec["DBA"],
+                         "epochs": epoch_perf(logdir)}
+            if leg == "reuse":
+                check(os.stat(manifest).st_mtime_ns == mtime,
+                      "cache reuse: the second main rewrote the manifest")
+                check(legs[leg]["native_clouds"] == 0,
+                      f"cache reuse: {legs[leg]['native_clouds']} clouds "
+                      "decoded, expected none")
+            torch.cuda.empty_cache()
+    finally:
+        dcache.build_cache = real_build
+    train_set, val_set = build_train_val_sets(
+        GlobalConfig(), trainval_root=root + "/Multi_Modal/",
+        train_root_csv="ml_challenge_dev_multi_modal.csv",
+        adaptation_root=root + "/Adaptation_dataset_multi_modal/",
+        adaptation_csv="ml_challenge_data_adaptation_multi_modal.csv",
+        augmentation=False)
+    # build_cache reads sample 0 once more to size the memmaps
+    clouds = 5 * (len(train_set) + 1 + len(val_set) + 1)
+    check(legs["build"]["native_clouds"] == clouds,
+          f"cache build: {legs['build']['native_clouds']} clouds through "
+          f"the native loader, expected {clouds}")
+    result.update(legs)
+    result["uncached_epochs"] = cli["mamba"]["epochs"]
+
+    # the readers alone, a batch of 8, beside the cli phase's decode loader
+    def ms_per_batch(loader):
+        t0 = time.perf_counter()
+        n = sum(1 for _ in loader)
+        return 1e3 * (time.perf_counter() - t0) / n
+
+    train_cache = os.path.join(cache_dir, "train")
+    result["loader_ms_per_batch"] = {
+        "decode (cli phase)": cli["loader_ms_per_batch"],
+        "CachedDataset+DataLoader": ms_per_batch(DataLoader(
+            dcache.CachedDataset(train_cache), CLI_BATCH, shuffle=True,
+            num_workers=8)),
+        "CachedBatchLoader": ms_per_batch(dcache.CachedBatchLoader(
+            train_cache, CLI_BATCH, shuffle=True))}
+
+    # compact batches against host-upcast ones, radar f16 and uint8
+    ru8_dir = os.path.join(base, "cache_radar_uint8")
+    dcache.build_cache(train_set, ru8_dir, radar_dtype="uint8")
+    result["compact"] = compact_vs_host(card, train_cache, ru8_dir)
+
+    # native BEV maps against the Python path, every cloud of the tree
+    clouds = sorted(os.path.join(d, f) for d, _, fs in os.walk(root)
+                    for f in fs if f.endswith(".ply"))
+    fovs = np.asarray([F.fov_for_address(p, True) for p in clouds])
+    got = native.batch_ply_to_bev(clouds, fovs)
+    want = np.stack([F.lidar_to_bev_np(ply.read_points(p), fov)[0]
+                     for p, fov in zip(clouds, fovs)])
+    check(got is not None and np.array_equal(got, want),
+          f"cache: native BEV maps differ from the Python path's on "
+          f"{len(clouds)} clouds")
+    result["native_bev_equal_clouds"] = len(clouds)
+
+    # the host-side benchmark at realistic sizes
+    io_root = os.path.join(base, "bench_io")
+    os.makedirs(io_root)
+    result["bench_io"] = bench_io.run(io_root + "/", BENCH_IO_SAMPLES,
+                                      device=DEVICE)
+    shutil.rmtree(io_root)
+
+    # the convergence smoke: full width, bf16, the scan kernels
+    t0 = time.perf_counter()
+    conv = convergence_smoke.run(mambafuser_config(), CONVERGE_STEPS,
+                                 CONVERGE_BATCH, CONVERGE_LR, DEVICE,
+                                 verbose=False)
+    conv["s"] = time.perf_counter() - t0
+    check(conv["halved"], f"convergence smoke: the loss did not halve: "
+          f"{conv['first']} -> {conv['last']}")
+    result["convergence"] = {k: conv[k] for k in ("first", "last", "top1",
+                                                  "s")}
+    torch.cuda.empty_cache()
+
+    # the DBA regression at its default small geometry, the kernels on
+    t0 = time.perf_counter()
+    dba = dba_regression.run(verbose=False, device=DEVICE)
+    dba["s"] = time.perf_counter() - t0
+    curve = dba["val_curve"]
+    check(dba["dba_floor"] < DBA_FLOOR_MAX and dba["dba_raw"] >= DBA_MIN
+          and dba["dba_ema"] >= DBA_MIN
+          and dba["dba_ema"] >= dba["dba_raw"] - DBA_EMA_SLACK
+          and np.mean(curve[-3:]) > np.mean(curve[:3]) + DBA_CURVE_RISE,
+          f"DBA regression below the JAX thresholds: {json.dumps(dba)}")
+    result["dba_regression"] = dba
+    torch.cuda.empty_cache()
+    print(f"cache on {card}: " + json.dumps(
+        {k: v for k, v in result.items() if k != "compact"}))
+    return result
+
+
 def serve_main(argv, label):
     """One in-process run of ``python -m deepsense6g_tii_tpu_torch.serve``'s
     main; returns its JSON line and the kernel launches of the whole run
@@ -2887,6 +3172,9 @@ def main(argv=None):
     del init, batch
     # the train CLI, MambaFuser then GPT TransFuser
     cli = phase_cli(card)
+    # this slice's main path: the train CLI through the memmap cache, the
+    # native loader and the tools that train through them
+    cache = phase_cache(card, cli)
     # this slice's main paths: the serve CLI on trained and reference
     # checkpoints, and the 30-to-5 variant served and trained
     serve_result = phase_serve(card, {
@@ -3001,6 +3289,11 @@ def main(argv=None):
         return (cli["mamba"]["launches_per_step"].get(name, 0)
                 + cli["gpt"]["launches_per_step"].get(name, 0))
 
+    def cache_launches(name):
+        """A train step's launches on the cached train CLI's path (cache
+        phase)."""
+        return cache["build"]["launches_per_step"].get(name, 0)
+
     def launches_30to5(name):
         """Launches per forward or step on the 30-to-5 path (30to5 phase):
         GPT serving forward and training step, MambaFuser serving forward
@@ -3066,6 +3359,7 @@ def main(argv=None):
                 "launches": (steps.get(name, 0) if launches is None
                              else launches),
                 "cli_launches_per_step": cli_launches(name),
+                "cache_launches_per_step": cache_launches(name),
                 "launches_30to5": launches_30to5(name),
                 "launches_rebuild": launches_rebuild(name),
                 "max_abs_err": err, "ms": ms, "plain_ms": plain,
@@ -3146,6 +3440,7 @@ def main(argv=None):
             "replaces": f"deepsense6g_tii_tpu/ops/selective_scan.py:{line}",
             "launches": msteps.get(name, 0),
             "cli_launches_per_step": cli_launches(name),
+            "cache_launches_per_step": cache_launches(name),
             "launches_30to5": launches_30to5(name),
             "launches_rebuild": launches_rebuild(name),
             **({f"per_{'forward' if name == ss.KERNEL else 'step'}_30to5":
@@ -3180,6 +3475,7 @@ def main(argv=None):
         "replaces": "deepsense6g_tii_tpu/ops/selective_scan.py:268",
         "launches": roofline_launches.get(ss.KERNEL_SEQ, 0),
         "cli_launches_per_step": cli_launches(ss.KERNEL_SEQ),
+        "cache_launches_per_step": cache_launches(ss.KERNEL_SEQ),
         "launches_30to5": launches_30to5(ss.KERNEL_SEQ),
         "launches_rebuild": launches_rebuild(ss.KERNEL_SEQ),
         "max_abs_err": max(r["max_abs_err"] for r in seq_rows),
@@ -3211,6 +3507,7 @@ def main(argv=None):
         "replaces": "tools/scan_roofline.py:82",
         "launches": roofline_launches.get(sr.KERNEL_CHAIN, 0),
         "cli_launches_per_step": cli_launches(sr.KERNEL_CHAIN),
+        "cache_launches_per_step": cache_launches(sr.KERNEL_CHAIN),
         "launches_30to5": launches_30to5(sr.KERNEL_CHAIN),
         "launches_rebuild": launches_rebuild(sr.KERNEL_CHAIN),
         "max_abs_err": max(r["max_abs_err"] for r in chain_rows),

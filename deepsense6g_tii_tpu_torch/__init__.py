@@ -6,7 +6,9 @@ name.  The port imports torch and numpy only, never jax, flax or the JAX
 package.  Layers:
 
   config.py   GlobalConfig (own copy)
-  data/       features, the DeepSense dataset and loader
+  data/       features, the DeepSense dataset and loader, the memmap
+              cache
+  runtime/    the native C++ PLY/BEV/k-d tree loader (g++ at first use)
   ops/        pooling, bilinear resize, flash attention and the selective
               scan (hand-written CUDA kernels in csrc/, built with nvcc at
               first use)
@@ -18,7 +20,8 @@ package.  Layers:
               video/flow/audio trainer
   cli/        the train and rebuild CLIs
   serve.py    Predictor: batch buckets, top-k beams, latency benchmark
-  tools/      kernel benchmarks and the roofline calibration
+  tools/      kernel benchmarks, the roofline calibration, the data-path
+              benchmarks and the accuracy smoke and regression
 
 Entry points run on the GPU (``device="cuda"``) and raise when CUDA is
 absent unless the caller asks for ``device="cpu"``.

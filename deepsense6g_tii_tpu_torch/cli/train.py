@@ -14,9 +14,13 @@ multi-step variant.  ``--load_torch_checkpoint PATH`` imports a reference
 ``.pth`` into the model and the EMA shadow before training, validating or
 testing (after ``--load_model_path`` or a resume, as in the JAX CLI).
 
-Flags of later slices raise ``NotImplementedError`` naming their ROADMAP.md
-item: ``--cache_dir`` and ``--multihost``.  So do the TPU knobs the port
-does not take:
+``--cache_dir DIR`` featurizes the train and validation sets once into
+memmaps under ``DIR/train`` and ``DIR/val`` (data/cache.py; a later run
+finds them and builds nothing) and trains from them; ``--Test`` reads the
+raw tree, as in the JAX CLI.
+
+``--multihost`` (a later slice) raises ``NotImplementedError`` naming its
+ROADMAP.md item.  So do the TPU knobs the port does not take:
 ``--merge_lidar_radar``, ``--padded_token_stream``, ``--flatten_accum``,
 ``--opt_mu_dtype bfloat16`` and ``--flash_dropout_impl hw``.  ``--remat``
 is accepted and ignored.
@@ -68,8 +72,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--data_root", type=str, default="./Dataset")
     p.add_argument("--num_workers", type=int, default=8)
     p.add_argument("--cache_dir", type=str, default=None,
-                   help="pre-featurized array cache directory (not in the "
-                        "port yet: raises)")
+                   help="pre-featurized array cache directory (memmaps, "
+                        "built at the first run)")
     p.add_argument("--pred_len", type=int, default=1)
     p.add_argument("--seq_len", type=int, default=5)
     p.add_argument("--grad_clip", type=float, default=None)
@@ -131,8 +135,6 @@ def mangle_logdir(args) -> str:
 
 
 _LATER = (
-    ("cache_dir", lambda v: v is not None,
-     "the pre-featurized cache (ROADMAP.md Queue 1 item 3)"),
     ("multihost", bool, "multi-GPU training (ROADMAP.md Queue 1 item 7)"),
 )
 _TPU_KNOBS = (
@@ -291,6 +293,14 @@ def main(argv=None) -> int:
         flip=bool(args.flip))
     print("train_set:", len(train_set),
           "val_set:", len(val_set) if val_set else 0)
+
+    if args.cache_dir:
+        from ..data.cache import CachedDataset, build_cache
+        train_set = CachedDataset(build_cache(
+            train_set, os.path.join(args.cache_dir, "train")))
+        if val_set is not None:
+            val_set = CachedDataset(build_cache(
+                val_set, os.path.join(args.cache_dir, "val")))
 
     val_loader = (DataLoader(val_set, args.batch_size,
                              num_workers=args.num_workers)

@@ -12,9 +12,10 @@ float32 0..255, lidar (T, H, H, 1), radar (T, H, H, 1|2), gps (2, 2).
 
 The index CSV is read with the standard library's ``csv`` module; beam
 labels are parsed as the JAX package's pandas types them (an int, or a
-"b1_..._bP" string for ``pred_len > 1``).  The LiDAR clouds are parsed in
-Python (utils/ply.py); the JAX package's native PLY/BEV loader is not
-ported (ROADMAP.md Queue 1 item 3).
+"b1_..._bP" string for ``pred_len > 1``).  A LiDAR cloud is parsed and
+histogrammed by the native C++ loader (runtime/native.py) when it is
+built, else in Python (utils/ply.py + features.lidar_to_bev_np); both give
+the same map bit for bit.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 
 from ..config import GlobalConfig
+from ..runtime import native
 from ..utils import image as _image
 from ..utils import ply
 from . import features as F
@@ -50,6 +52,15 @@ def _shrink_map(arr: np.ndarray, res: int) -> np.ndarray:
         raise ValueError(f"input_resolution {res} must divide map size {s}")
     k = s // res
     return arr.reshape(res, k, res, k).mean(axis=(1, 3)).astype(arr.dtype)
+
+
+def _lidar_bev(path: str, fov) -> np.ndarray:
+    """A .ply cloud's (256, 256) BEV map: through the native loader when it
+    is built, else utils.ply + numpy (the same map bit for bit)."""
+    out = native.batch_ply_to_bev([path], np.asarray([fov]), n_threads=1)
+    if out is not None:
+        return out[0]
+    return F.lidar_to_bev_np(ply.read_points(path), fov)[0]
 
 
 def _insert_tag(path: str, tag: str, pos: int = 30) -> str:
@@ -183,9 +194,8 @@ class BeamDataset:
 
             lidar_rel = self._lidar_path(t, index)
             fov = F.fov_for_address(lidar_rel, bool(cfg.custom_FoV_lidar))
-            bev = _shrink_map(
-                F.lidar_to_bev_np(ply.read_points(self.root + lidar_rel),
-                                  fov)[0], cfg.input_resolution)
+            bev = _shrink_map(_lidar_bev(self.root + lidar_rel, fov),
+                              cfg.input_resolution)
             if self.flip:
                 bev = np.ascontiguousarray(np.flip(bev, 1))
             lidars.append(bev[..., np.newaxis].astype(np.float32))

@@ -33,16 +33,16 @@ from typing import Callable, Dict, Iterable, Sequence, Tuple
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 
 
-def _build_dir() -> Path:
-    """``build/kernels`` at the root of the checkout when the package runs
+def build_dir(sub: str) -> Path:
+    """``build/<sub>`` at the root of the checkout when the package runs
     from one; for an installed package, a per-user cache under HOME."""
     root = Path(__file__).resolve().parents[2]
     if (root / "pyproject.toml").is_file():
-        return root / "build" / "kernels"
-    return Path.home() / ".cache" / "deepsense6g_tii_tpu_torch" / "kernels"
+        return root / "build" / sub
+    return Path.home() / ".cache" / "deepsense6g_tii_tpu_torch" / sub
 
 
-BUILD_DIR = _build_dir()
+BUILD_DIR = build_dir("kernels")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -108,3 +108,22 @@ def datasheet_rates() -> dict:
     return {"sm_clock_mhz": clock_hz / 1e6, "sms": n_sm,
             "fmul_per_s": n_sm * FP32_LANES_PER_SM * clock_hz,
             "exp_per_s": n_sm * SFU_PER_SM_CLOCK * clock_hz}
+
+
+def h2d(arrays: dict, device="cuda") -> dict:
+    """The bytes of ``arrays`` (numpy, by name) and the milliseconds one copy
+    of all of them takes from pinned host memory to ``device`` on the
+    current stream, as the engine stages a batch (``time_ms``: CUDA events
+    on the card), with the dtypes that crossed."""
+    import numpy as np
+    import torch
+    host = {k: torch.from_numpy(np.ascontiguousarray(v)).pin_memory()
+            for k, v in arrays.items()}
+
+    def copy():
+        return [t.to(device, non_blocking=True) for t in host.values()]
+
+    return {"bytes": sum(t.numel() * t.element_size() for t in host.values()),
+            "ms": time_ms(copy, device, iters=10),
+            "dtypes": {k: str(t.dtype).removeprefix("torch.")
+                       for k, t in host.items()}}

@@ -15,9 +15,13 @@ background thread runs the loader (numpy only, never CUDA) ``prefetch``
 batches ahead; the training thread pins each collated batch (a fresh pinned
 buffer per batch, so no buffer is refilled while a copy from it may still
 be in flight) and copies it to the card with ``non_blocking=True`` on a
-copy stream, one batch ahead of the step that uses it.  Ragged batches go
-to the step as they are (exact rows: BatchNorm's statistics and the loss
-see only real samples), where the JAX engine pads to its mesh and masks.
+copy stream, one batch ahead of the step that uses it.  A batch crosses in
+the dtypes the loader gives: ``data/cache.py::CachedBatchLoader``'s uint8
+and float16 storage is upcast by the steps on the card
+(``train/steps.py::upcast``), so the copy moves the compact bytes.  Ragged
+batches go to the step as they are (exact rows: BatchNorm's statistics and
+the loss see only real samples), where the JAX engine pads to its mesh and
+masks.
 """
 
 from __future__ import annotations

@@ -41,28 +41,48 @@ import numpy as np
 import torch
 
 from ..config import GlobalConfig
+from ..data.cache import RADAR_UINT8_SCALE
+from ..data.features import HIST_MAX_PER_PIXEL
 from ..utils.device import resolve_device
 from .losses import cross_entropy_loss, focal_loss
 from .state import TrainState, set_learning_rate
 
 _INPUTS = ("image", "lidar", "radar", "gps")
 _TENSORS = _INPUTS + ("beam", "beamidx", "valid", "rebuild_feats")
+# the divisors of the cache's scaled uint8 storage (data/cache.py)
+_SCALES = {"lidar": HIST_MAX_PER_PIXEL, "radar": RADAR_UINT8_SCALE}
 
 
 def _to_device(batch, device) -> Dict[str, torch.Tensor]:
-    """The batch's tensors (numpy arrays or tensors) on ``device``; float
-    arrays as f32.  Other entries (scenario names) are dropped."""
+    """The batch's tensors (numpy arrays or tensors) on ``device``, copied
+    in the dtypes they come in (the cache's compact uint8 and float16 cross
+    as they are stored) and upcast there by :func:`upcast`.  Other entries
+    (scenario names) are dropped."""
     out = {}
     for key in _TENSORS:
         if key not in batch:
             continue
-        x = torch.as_tensor(np.asarray(batch[key])
-                            if not torch.is_tensor(batch[key])
-                            else batch[key])
-        if x.is_floating_point():
-            x = x.float()
-        out[key] = x.to(device)
+        x = batch[key]
+        x = x if torch.is_tensor(x) else torch.as_tensor(np.asarray(x))
+        out[key] = upcast(key, x.to(device))
     return out
+
+
+def upcast(key: str, x: torch.Tensor) -> torch.Tensor:
+    """A batch entry as the model takes it, computed where ``x`` lies (the
+    JAX step's ``_upcast_f16``).  A uint8 ``lidar`` holds the cache's BEV
+    clip counts and a uint8 ``radar`` its opt-in fixed point
+    (data/cache.py): each is divided in f32 by its scale, 5 or 255, which
+    gives the host's float32 maps bit for bit.  The divisor is a tensor on
+    ``x``'s device: CUDA divides by a Python number as a product with its
+    reciprocal, which can differ in the last bit.  Other uint8 and float
+    entries become f32 (exact for uint8 and float16); integer labels stay
+    as they are."""
+    if x.dtype == torch.uint8 and key in _SCALES:
+        return x.float() / torch.full((), _SCALES[key], device=x.device)
+    if x.dtype == torch.uint8 or x.is_floating_point():
+        return x.float()
+    return x
 
 
 def compute_loss(cfg: GlobalConfig, loss_name: str, temp_coef: bool,
@@ -123,9 +143,10 @@ def make_train_step(model, cfg: GlobalConfig, state: TrainState,
     ``state`` (the model's weights and BatchNorm statistics, AdamW, the EMA
     shadow and the step) in place.  ``batch`` holds numpy arrays or tensors
     (``image``, ``lidar``, ``radar``, ``gps``, ``beam`` or ``beamidx``,
-    and optionally ``rebuild_feats`` for the encoder's rebuild hook);
-    ``loss`` is a 0-d tensor and ``ranks`` the (B, num_beams) beam indices
-    by descending logit, both on the device.  A ``valid`` row mask (the JAX
+    and optionally ``rebuild_feats`` for the encoder's rebuild hook), in
+    f32 or in the cache's compact dtypes, upcast on the device
+    (:func:`upcast`); ``loss`` is a 0-d tensor and ``ranks`` the (B,
+    num_beams) beam indices by descending logit, both on the device.  A ``valid`` row mask (the JAX
     engine's padded batches, which also mask BatchNorm's statistics) is not
     taken yet and raises.
 
@@ -159,7 +180,7 @@ def make_train_step(model, cfg: GlobalConfig, state: TrainState,
             raise NotImplementedError(
                 "a valid row mask (padded batches, masked out of BatchNorm's "
                 "statistics) is not in the port yet: ROADMAP.md Queue 1 "
-                "item 3, with the engine")
+                "item 7, with multi-GPU training")
         model.train()
         b = _to_device(batch, dev)
         set_learning_rate(state, lr)
@@ -216,8 +237,10 @@ def make_eval_step(model, cfg: GlobalConfig, state: TrainState,
     [, "loss"]}`` in eval mode (BatchNorm running statistics, no dropout),
     with the EMA shadow's weights when ``use_ema`` (the model's own weights
     are left as they are).  ``confidence`` is the top f32 softmax
-    probability; ``loss`` comes when the batch has ``beam`` targets.
-    ``randlike`` missing modalities draw fresh noise per ``batch_idx``."""
+    probability; ``loss`` comes when the batch has ``beam`` targets.  The
+    batch is taken as the train step takes it (compact dtypes upcast on
+    the device).  ``randlike`` missing modalities draw fresh noise per
+    ``batch_idx``."""
     dev = resolve_device(device)
 
     @torch.no_grad()

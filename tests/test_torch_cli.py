@@ -21,13 +21,15 @@ from test_torch_modules import two_torch_threads  # noqa: F401 (autouse)
 
 # flags that raise NotImplementedError, with a value that triggers it
 RAISING = {
-    "cache_dir": "cache", "multihost": "1", "merge_lidar_radar": "1",
+    "multihost": "1", "merge_lidar_radar": "1",
     "padded_token_stream": "1", "flatten_accum": "1",
     "opt_mu_dtype": "bfloat16", "flash_dropout_impl": "hw",
 }
-# flags that raised until the 30-to-5 variant and the reference import
-# were ported; runs of main with them: tests/test_torch_30to5.py
-PORTED = {"load_torch_checkpoint": "x.pth", "pred_len": "5"}
+# flags that raised until the 30-to-5 variant, the reference import and
+# the memmap cache were ported; runs of main with them:
+# tests/test_torch_30to5.py, test_main_cache_dir_builds_then_reuses below
+PORTED = {"load_torch_checkpoint": "x.pth", "pred_len": "5",
+          "cache_dir": "cache"}
 SMALL_FLAGS = ["--seq_len", "2", "--compute_dtype", "float32",
                "--input_resolution", "64", "--vert_anchors", "2",
                "--horz_anchors", "2", "--n_layer", "1",
@@ -81,8 +83,9 @@ def test_unported_flags_raise(flag, tmp_path):
         args = cli.build_parser().parse_args([f"--{flag}", PORTED[flag]])
         cli.check_args(args)                 # accepted now
         cfg = cli.config_from_args(args)
-        assert (cfg.pred_len == 5 if flag == "pred_len"
-                else args.load_torch_checkpoint == "x.pth")
+        assert {"pred_len": cfg.pred_len == 5,
+                "load_torch_checkpoint": args.load_torch_checkpoint
+                == "x.pth", "cache_dir": args.cache_dir == "cache"}[flag]
         return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         cli.main(["--device", "cpu", "--logdir", str(tmp_path / "r"),
@@ -187,3 +190,27 @@ def test_entry_point_signatures():
     assert "argv" in inspect.signature(cli.main).parameters
     assert cli.build_parser().get_default("device") == "cuda"
     assert cli.build_parser().get_default("compute_dtype") == "bfloat16"
+
+
+def test_main_cache_dir_builds_then_reuses(demo, tmp_path):
+    """--cache_dir featurizes the train and validation sets once (the
+    files byte-equal to the JAX package's build of the same sets, as
+    tests/test_torch_cache.py holds) and trains from them; a second run
+    finds the caches, writes nothing to them and, from the same seed,
+    trains the same losses."""
+    cache_dir = str(tmp_path / "cache")
+    base = ["--device", "cpu", "--data_root", demo, "--augmentation", "0",
+            "--epochs", "1", "--cache_dir", cache_dir, *SMALL_FLAGS]
+    assert cli.main(base + ["--logdir", str(tmp_path / "a")]) == 0
+    manifests = {sub: os.path.join(cache_dir, sub, "manifest.json")
+                 for sub in ("train", "val")}
+    mtimes = {sub: os.stat(m).st_mtime_ns for sub, m in manifests.items()}
+    n = {sub: json.load(open(m))["n"] for sub, m in manifests.items()}
+    assert n == {"train": 10, "val": 2}             # 90/10 of 12 samples
+    assert cli.main(base + ["--logdir", str(tmp_path / "b")]) == 0
+    assert mtimes == {sub: os.stat(m).st_mtime_ns
+                      for sub, m in manifests.items()}
+    a, b = (json.load(open(tmp_path / d / "recent.log")) for d in "ab")
+    assert a["train_loss"] == b["train_loss"] and np.isfinite(
+        a["train_loss"]).all()
+    assert a["val_loss"] == b["val_loss"]
