@@ -182,6 +182,32 @@ Phases, in order; any failure exits non-zero and prints no result:
             best_model.pt: one epoch, the 5-way best and final files, then
             --Val 1 --load_model_dir with a finite DBA.  The VFA trainer 10
             steps at the reference widths (2304, 2048, 512): the loss falls.
+13. tools   the measuring tools: tools/bench_serve.py's run for both
+            full-width models at buckets (1, 8), 10 requests each (p50/p90,
+            pipelined samples/s); tools/profile_step.py's run of each
+            model's train step at its card defaults (B=8, bf16), 3 steps
+            traced: ms a step by category (the port's kernels by their
+            KERNEL names, where #1 and #2 must stand at 32 launches a GPT
+            step, #6 and #9 at 67 a Mamba step), the top kernels, the
+            convolutions by site and direction, the dropped events;
+            tools/bench_matrix.py's gpt_serve item in its own process,
+            without error.
+14. preprocess  the offline data path under build/preprocess at real
+            sizes: 128 raw radar cubes (4, 256, 250) through
+            data/preprocess/radar.py on the card, every map within 1e-4 of
+            the numpy chain (cubes/s, one 64-cube call by CUDA events); a
+            ~18,500-point static scene in 8 jittered frames with a car in
+            the last through the LiDAR filter's cuda, native and kdtree
+            backends (frames/s each; equal clouds, the car kept, every
+            neighbour that differs from the k-d tree's a tie at f32
+            rounding); csv_builder's root CSV; radar maps, filtered clouds,
+            augmented variants and scenario CSVs on a demo tree, and the
+            train CLI one epoch on it at the debug geometry with
+            --filtered 1 --augmentation 1 (11 scan forwards and backwards
+            a step; the filtered and augmented files read).
+15. quickstart  python -m deepsense6g_tii_tpu_torch.examples.quickstart
+            through its main on the card: every artifact, one beam_pred.csv
+            row per test sample, 11 scan forwards and backwards a step.
 
 With --parent PATH, after the last phase, the flash forward, merged
 backward, split backward and each split kernel alone of the checkout at
@@ -204,6 +230,12 @@ import sys
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+if os.path.isdir(os.path.join(REPO, "deepsense6g_tii_tpu_torch")):
+    # the trace helpers (tools/trace.py); without the package,
+    # phase_device fails
+    from deepsense6g_tii_tpu_torch.tools.trace import (device_ms,
+                                                       profile_call,
+                                                       short_name, traced)
 DEVICE = "cuda"
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, f32 CUDA
@@ -359,6 +391,23 @@ STEPS_30TO5, GPT_STEPS_30TO5 = 5, 3
 # steps, rebuild-CLI epochs, VFA steps at the reference widths
 REBUILD_STEPS, REBUILD_EVAL_STEPS, REBUILD_GPT_STEPS = 5, 20, 3
 REBUILD_CLI_EPOCHS, VFA_STEPS, VFA_BATCH = 1, 10, 16
+# the tools phase: profile_step's traced steps (bench_serve runs its own
+# default of requests a bucket), the calls in each attribution trace
+PROFILE_STEPS, ATTRIBUTION_CALLS = 3, 20
+# the preprocess phase.  Radar: raw cubes (antennas, samples, chirps),
+# complex64, and the maps' bound against the numpy chain (f64).  LiDAR: a
+# static scene of a scenario32-sized cloud (its min_points is 18000) in
+# the scenario's field of view, jittered frames, a car in the last; the
+# car's box (x, y, z lo and hi) has no static point within CAR_MARGIN in x
+# and y
+RADAR_CUBES, RADAR_CUBE = 128, (4, 256, 250)
+RADAR_MAP_ATOL = 1e-4
+LIDAR_GROUND, LIDAR_WALLS, LIDAR_FRAMES = 12_000, 6_500, 8
+LIDAR_JITTER, CAR_POINTS, CAR_MARGIN = 0.02, 300, 1.5
+CAR_BOX = ((-14.0, -10.0), (-7.0, -5.0), (-1.5, 0.0))
+# the quickstart's debug geometry (n_layer 1): scan launches a train step,
+# each direction of 4 stages and TimeMamba's 3
+DEBUG_SCAN_LAUNCHES = 2 * 4 + 3
 
 
 def fail(msg):
@@ -376,81 +425,6 @@ def time_ms(fn, iters=20, warmup=3):
     queued behind a spin kernel (tools/timing.py)."""
     from deepsense6g_tii_tpu_torch.tools import timing
     return timing.time_ms(fn, DEVICE, iters=iters, warmup=warmup)
-
-
-def traced_kernels(fn, tries=3):
-    """Runs ``fn`` under torch.profiler and returns (its device events, host
-    wall time in us).  On the card's machine a trace now and then comes back
-    with no device events at all; such a trace is taken again, up to
-    ``tries`` times, and if none has any the events are [] (the callers
-    then time by CUDA events, or print that the trace is empty)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    for _ in range(tries):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
-        kernels = [e for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA]
-        if kernels:
-            return kernels, wall_us
-    print(f"traced_kernels: the profiler recorded no device time in {tries} "
-          f"traces")
-    return [], wall_us
-
-
-def device_ms(fn, iters=20, warmup=3, tries=3):
-    """Device time of one call of ``fn``: the summed time of the kernels it
-    launches, from torch.profiler, averaged over ``iters`` calls.  Unlike
-    :func:`time_ms`, it excludes the gaps while the host enqueues.  Every
-    kernel name must occur a multiple of ``iters`` times in the trace; a
-    trace where one does not (the profiler on the card's machine now and
-    then drops device events, at times in every trace of a run) is taken
-    again, up to ``tries`` times.  If the last trace still lacks events, a
-    call's time is each kernel's mean time times its launches a call
-    (its count over ``iters``, rounded), provided that the events missing
-    are at most 5% of those expected; else (seen on some of the card's
-    machines: 5-10% missing in every trace) it is timed by CUDA events
-    (time_ms).  The line printed says which."""
-    from collections import Counter, defaultdict
-    for _ in range(warmup):
-        fn()
-
-    def run():
-        for _ in range(iters):
-            fn()
-
-    for _ in range(tries):
-        kernels, _ = traced_kernels(run)
-        counts = Counter(e.name for e in kernels)
-        if counts and all(n % iters == 0 for n in counts.values()):
-            return sum(e.time_range.elapsed_us() for e in kernels) / iters / 1e3
-    if not counts:
-        ms = time_ms(fn, iters=iters, warmup=0)
-        print(f"device_ms: the profiler recorded no device time: timed by "
-              f"CUDA events, {ms:.6g} ms")
-        return ms
-    per_call = {name: round(n / iters) for name, n in counts.items()}
-    missing = sum(abs(per_call[name] * iters - n)
-                  for name, n in counts.items())
-    expected = iters * sum(per_call.values())
-    if min(per_call.values()) == 0 or missing > 0.05 * expected:
-        ms = time_ms(fn, iters=iters, warmup=0)
-        print(f"device_ms: {tries} traces dropped device events; the last "
-              f"lacks {missing} of {expected}: timed by CUDA events, "
-              f"{ms:.6g} ms")
-        return ms
-    us = defaultdict(float)
-    for e in kernels:
-        us[e.name] += e.time_range.elapsed_us()
-    print(f"device_ms: {tries} traces dropped device events; the last "
-          f"lacks {missing} of {expected}, timed by each kernel's mean")
-    return sum(us[name] / counts[name] * per_call[name]
-               for name in counts) / 1e3
 
 
 def phase_device():
@@ -1382,7 +1356,7 @@ def passes_ms(fn, tags, iters=10, tries=3):
     import torch
     fn()
     for _ in range(tries):
-        kernels, _ = traced_kernels(lambda: [fn() for _ in range(iters)])
+        _, kernels, _ = traced(lambda: [fn() for _ in range(iters)])
         torch.cuda.synchronize()
         times = [e.time_range.elapsed_us() for e in kernels
                  if any(tag in e.name for tag in tags)]
@@ -1404,19 +1378,11 @@ def kernels_per_call(fn, tries=3):
     fn()
     best = Counter()
     for _ in range(tries):
-        kernels, _ = traced_kernels(fn)
+        _, kernels, _ = traced(fn)
         counts = Counter(short_name(e.name) for e in kernels)
         if sum(counts.values()) > sum(best.values()):
             best = counts
     return dict(best)
-
-
-def short_name(name):
-    """A kernel's name without its return type, namespaces, template
-    arguments and parameters."""
-    name = name.replace("(anonymous namespace)::", "")
-    name = name.split("<")[0].split("(")[0].split("::")[-1].strip()
-    return name.split()[-1] if name else name
 
 
 def phase_slice(card, name, cfg, expect, f32_runs, f32_checks,
@@ -1521,35 +1487,6 @@ def profile_request(pred, arrs, card, name, top=8):
                  f"{name} profile batch {arrs[0].shape[0]} on {card}", top)
 
 
-def profile_call(fn, label, top=8):
-    """Traces one call of ``fn`` and prints its device busy share of the
-    host wall time and the kernels that take the most device time (None
-    where the profiler recorded no device time)."""
-    kernels, wall_us = traced_kernels(fn)
-    if not kernels:
-        out = {"wall_ms": wall_us / 1e3, "device_busy_ms": None,
-               "idle_share": None, "kernel_launches": None}
-        print(f"{label}: " + json.dumps(out))
-        return out
-    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
-    busy, end = 0.0, float("-inf")
-    for s, e in spans:
-        busy += max(0.0, e - max(s, end))
-        end = max(end, e)
-    by_name = {}
-    for e in kernels:
-        n, t = by_name.get(e.name, (0, 0.0))
-        by_name[e.name] = (n + 1, t + e.time_range.elapsed_us())
-    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]
-    out = {"wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
-           "idle_share": 1.0 - busy / wall_us if wall_us else None,
-           "kernel_launches": len(kernels),
-           "top_kernels": [{"name": n[:80], "count": c, "ms": t / 1e3}
-                           for n, (c, t) in ranked]}
-    print(f"{label}: " + json.dumps(out))
-    return out
-
-
 def phase_train(card, name, cfg, expect, tokens=None, steps=TRAIN_STEPS,
                 falls=True):
     """A main path: ``steps`` full-width training steps of ``cfg`` (with
@@ -1616,32 +1553,46 @@ def phase_train(card, name, cfg, expect, tokens=None, steps=TRAIN_STEPS,
     return result, init, batch
 
 
+class counted_train_steps:
+    """Within it, every train step the engine makes (``train.engine.
+    make_train_step``) appends its launches (counts at 0 just before the
+    step, read just after) to ``step_counts``."""
+
+    def __init__(self, step_counts):
+        self.step_counts = step_counts
+
+    def __enter__(self):
+        from deepsense6g_tii_tpu_torch.ops import _build
+        from deepsense6g_tii_tpu_torch.train import engine
+        self.real = real = engine.make_train_step
+
+        def counting(*a, **k):
+            step = real(*a, **k)
+
+            def counted(batch, lr):
+                _build.reset_launch_counts()
+                out = step(batch, lr)
+                self.step_counts.append(dict(_build.KERNEL_LAUNCHES))
+                return out
+            return counted
+
+        engine.make_train_step = counting
+        return self
+
+    def __exit__(self, *exc):
+        from deepsense6g_tii_tpu_torch.train import engine
+        engine.make_train_step = self.real
+
+
 def cli_run(argv, step_counts, label):
     """One in-process run of the train CLI's main; every train step's
     launches (counts at 0 just before the step, read just after) go to
     ``step_counts``.  Returns the run's seconds."""
     from deepsense6g_tii_tpu_torch.cli import train as cli
-    from deepsense6g_tii_tpu_torch.ops import _build
-    from deepsense6g_tii_tpu_torch.train import engine
 
-    real = engine.make_train_step
-
-    def counting(*a, **k):
-        step = real(*a, **k)
-
-        def counted(batch, lr):
-            _build.reset_launch_counts()
-            out = step(batch, lr)
-            step_counts.append(dict(_build.KERNEL_LAUNCHES))
-            return out
-        return counted
-
-    engine.make_train_step = counting
     t0 = time.perf_counter()
-    try:
+    with counted_train_steps(step_counts):
         check(cli.main(argv) == 0, f"cli {label}: main did not return 0")
-    finally:
-        engine.make_train_step = real
     return time.perf_counter() - t0
 
 
@@ -2556,6 +2507,544 @@ def phase_rebuild(card):
     return out
 
 
+def check_port_rows(prof, expect, label):
+    """Each launched wrapper of ``expect`` (KERNEL name: launches a step)
+    stands in the category table at its launches and, unless the trace
+    is empty, with device time; and no device time goes to a wrapper that
+    did not launch (a kernel renamed, or its template flag read wrong)."""
+    rows = {c["category"]: c for c in prof["categories"]}
+    for name, n in expect.items():
+        row = rows.get("port: " + name)
+        check(row is not None and row["launches_per_step"] == n,
+              f"{label}: {name} not in the category table at {n} a step: "
+              f"{row}")
+        check(prof["trace_empty"] or row["ms_per_step"] > 0,
+              f"{label}: {name} launched but has no device time: {row}")
+    for c, row in rows.items():
+        check(not c.startswith("port: ") or row["ms_per_step"] == 0
+              or set(c[len("port: "):].split(" + ")) <= set(expect),
+              f"{label}: device time of {c}, which did not launch: {row}")
+
+
+def attributed(label, fn):
+    """Traces ATTRIBUTION_CALLS calls of ``fn`` (after a first, untraced
+    one; a trace of one short call is often empty on the card's machine),
+    the wrappers' launches counted from 0, and holds profile_step's
+    category table to it: the port's device kernels in the trace go to the wrappers
+    that launched, and to all of them (a renamed kernel, or a template flag
+    read wrong, fails).  Returns the categories, or None where the
+    profiler recorded no device event (printed; nothing to hold)."""
+    from deepsense6g_tii_tpu_torch.ops import _build
+    from deepsense6g_tii_tpu_torch.tools import profile_step
+    fn()
+    _build.reset_launch_counts()
+    _, kernels, _ = traced(lambda: [fn() for _ in range(ATTRIBUTION_CALLS)])
+    launched = set(_build.KERNEL_LAUNCHES)
+    if not kernels:
+        print(f"{label}: the trace holds no device event; not checked")
+        return None
+    cats = sorted({profile_step.category(e.name, launched) for e in kernels
+                   if short_name(e.name) in profile_step.PORT_KERNELS})
+    named = {n for c in cats for n in c[len("port: "):].split(" + ")}
+    check(named == launched, f"{label}: the kernels went to {cats}; the "
+                             f"wrappers that launched: {sorted(launched)}")
+    print(f"{label}: " + json.dumps(cats))
+    return cats
+
+
+def attribution_legs():
+    """profile_step's categories for the wrappers the profiled steps do
+    not launch, at training shapes in bf16: the split flash backward (#3,
+    #4) at dropout DROP_P and the reverse scan forward and backward (#7,
+    #10) through autograd."""
+    import torch
+    from deepsense6g_tii_tpu_torch.ops import flash_attention as fa
+    from deepsense6g_tii_tpu_torch.ops import selective_scan as ss
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    q, k, v, do = (torch.randn(BATCH, HEADS, TOKENS, 64, device=DEVICE,
+                               generator=gen).to(torch.bfloat16)
+                   for _ in range(4))
+    kw = dict(sm_scale=64 ** -0.5, dropout_p=DROP_P, seed=-7)
+    o, lse = fa.flash_mha_fwd(q, k, v, **kw)
+    u, dt, A, B, C, dy = scan_inputs(gen, torch.bfloat16, TOKENS, 256)
+    u.requires_grad_()
+
+    def reverse_scan():
+        y, _ = ss.selective_scan_fwd(u, dt, A, B, C, reverse=True)
+        y.backward(dy)
+        torch.cuda.synchronize()
+
+    return {"split": attributed(
+                "tools attribution split backward", lambda: fa.flash_mha_bwd(
+                    q, k, v, o, lse, do, mode="split", **kw)),
+            "reverse": attributed("tools attribution reverse scan",
+                                  reverse_scan)}
+
+
+def phase_tools(card):
+    """The tools users call to measure the port: tools/bench_serve.py's run
+    for the full-width GPT TransFuser and MambaFuser at buckets (1, 8),
+    the tool's default bench_serve.ITERS requests each (p50/p90 and
+    pipelined samples/s), and tools/profile_step.py's run of each model's
+    train step at the tool's card defaults (B=8, bf16), PROFILE_STEPS
+    steps traced: ms a step by category, the top kernels, the convolutions
+    by site, the dropped events.  The profiled steps are a main path: the
+    wrappers' launches are counted from 0 over the traced steps, and #1
+    and #2 (GPT) or #6 and #9 (MambaFuser) must stand in the category
+    table at 32 or 67 a step with device time.  attribution_legs holds
+    the table's mapping for the wrappers these steps do not launch (#3,
+    #4, #7, #10) to the kernel names of a traced call.  Then
+    tools/bench_matrix.py's main runs its gpt_serve item in a process of
+    its own, whose entry must hold no error."""
+    import torch
+    from deepsense6g_tii_tpu_torch.ops import flash_attention as fa
+    from deepsense6g_tii_tpu_torch.ops import selective_scan as ss
+    from deepsense6g_tii_tpu_torch.serve import (gpt_transfuser_config,
+                                                 mambafuser_config)
+    from deepsense6g_tii_tpu_torch.tools import (bench_matrix, bench_serve,
+                                                 profile_step)
+
+    t_start = time.perf_counter()
+    n_scan = sum(SCAN_LAUNCHES.values())
+    out = {}
+    for arch, make in (("gpt", gpt_transfuser_config),
+                       ("mamba", mambafuser_config)):
+        serve = bench_serve.run(make(), (1, BATCH), iters=bench_serve.ITERS,
+                                device=DEVICE)
+        for b in (1, BATCH):
+            r = serve[f"b{b}"]
+            check(0 < r["p50_ms"] <= r["p90_ms"] < float("inf"),
+                  f"tools bench_serve {arch} batch {b}: {r}")
+        check(serve["pipelined"]["samples_per_sec"] > 0,
+              f"tools bench_serve {arch}: {serve['pipelined']}")
+        print(f"tools bench_serve {arch} on {card}: " + json.dumps(serve))
+        out[arch] = {"serve": serve}
+        torch.cuda.empty_cache()
+    for arch, expect in (
+            ("gpt", {fa.KERNEL: 4 * N_LAYER, fa.KERNEL_MERGED: 4 * N_LAYER}),
+            ("mamba", {ss.KERNEL: n_scan, ss.KERNEL_BWD: n_scan})):
+        label = f"tools profile_step {arch}"
+        cfg, B, K, GA = profile_step.step_config(
+            {"DEEPSENSE_BENCH_ARCH": arch}, on_card=True)
+        check((B, K, GA) == (BATCH, 1, 1) and cfg.n_tokens == TOKENS
+              and cfg.compute_dtype == "bfloat16",
+              f"{label}: unexpected step {cfg}, {B}, {K}, {GA}")
+        torch.cuda.empty_cache()
+        prof = profile_step.run(cfg, B, K, GA, dispatches=PROFILE_STEPS,
+                                device=DEVICE)
+        profile_step.print_summary(prof, f"{label} on {card}: ")
+        check(prof["launches_per_step"] == expect,
+              f"{label}: launches a step {prof['launches_per_step']}, "
+              f"expected exactly {expect}")
+        check_port_rows(prof, expect, label)
+        print(f"{label}: " + json.dumps(
+            {k: prof[k] for k in prof if k != "top"}))
+        out[arch]["profile"] = prof
+        torch.cuda.empty_cache()
+    out["attribution"] = attribution_legs()
+    path = os.path.join(REPO, "build", "tools", "bench_matrix.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    if os.path.exists(path):
+        os.remove(path)
+    t0 = time.perf_counter()
+    check(bench_matrix.main(["--only", "gpt_serve", "--out", path]) == 0,
+          "tools bench_matrix: main did not return 0")
+    with open(path) as f:
+        item = json.load(f)["items"]["gpt_serve"]
+    check("error" not in item and item.get("arch") == "gpt"
+          and "pipelined" in item, f"tools bench_matrix gpt_serve: {item}")
+    out["bench_matrix_s"] = time.perf_counter() - t0
+    out["seconds"] = time.perf_counter() - t_start
+    print(f"tools on {card}: bench_matrix gpt_serve in "
+          f"{out['bench_matrix_s']:.1f} s: " + json.dumps(item)
+          + f"; phase {out['seconds']:.1f} s")
+    return out
+
+
+def radar_cube(rng, target):
+    """A raw radar cube (antennas, samples, chirps), complex64: noise and
+    one point target at ``target`` (angle, range, velocity bins), scaled
+    by a factor of 0.1 to 1000 (each map is scaled by its own cube)."""
+    import numpy as np
+    n_rx, n_s, n_c = RADAR_CUBE
+    noise = (rng.standard_normal(RADAR_CUBE, dtype=np.float32)
+             + 1j * rng.standard_normal(RADAR_CUBE, dtype=np.float32))
+    phase = 2 * np.pi * (
+        target[0] * np.arange(n_rx)[:, None, None] / n_rx
+        + target[1] * np.arange(n_s)[None, :, None] / n_s
+        + target[2] * np.arange(n_c)[None, None, :] / n_c)
+    cube = noise + 8.0 * np.exp(1j * phase)
+    return (cube * 10.0 ** rng.uniform(-1, 3)).astype(np.complex64)
+
+
+def radar_map_errors(paths):
+    """(shapes and dtype right, max |err| of the range-angle map, of the
+    range-velocity map) of one written cube's maps against the numpy
+    chain: a worker of phase_preprocess's process pool."""
+    import numpy as np
+    from deepsense6g_tii_tpu_torch.data import features as F
+    raw, ang, vel = paths
+    cube = np.load(raw)
+    ra = F.minmax_np(F.range_angle_map_np(cube))
+    rv = F.minmax_np(F.range_velocity_map_np(cube))
+    a, v = np.load(ang), np.load(vel)
+    ok = (a.shape == ra.shape == v.shape == rv.shape == RADAR_CUBE[1:2] * 2
+          and a.dtype == v.dtype == np.float32)
+    return ok, float(np.abs(a - ra).max()), float(np.abs(v - rv).max())
+
+
+def lidar_scene(rng):
+    """The static scene (ground with a hole around the car's box, walls),
+    ~18,500 points in scenario32's field of view, and the car's points."""
+    import numpy as np
+    (cx0, cx1), (cy0, cy1), (cz0, cz1) = CAR_BOX
+    g = np.stack([rng.uniform(-60, -2, 3 * LIDAR_GROUND),
+                  rng.uniform(-40, 5.5, 3 * LIDAR_GROUND),
+                  rng.normal(-1.8, 0.02, 3 * LIDAR_GROUND)], 1)
+    hole = ((g[:, 0] > cx0 - CAR_MARGIN) & (g[:, 0] < cx1 + CAR_MARGIN)
+            & (g[:, 1] > cy0 - CAR_MARGIN) & (g[:, 1] < cy1 + CAR_MARGIN))
+    ground = g[~hole][:LIDAR_GROUND]
+    n = LIDAR_WALLS // 2
+    walls = np.concatenate([
+        np.stack([rng.uniform(-60, -2, n), np.full(n, -38.0),
+                  rng.uniform(-1.8, 6.0, n)], 1),
+        np.stack([np.full(LIDAR_WALLS - n, -58.0),
+                  rng.uniform(-40, 5.5, LIDAR_WALLS - n),
+                  rng.uniform(-1.8, 6.0, LIDAR_WALLS - n)], 1)])
+    car = np.stack([rng.uniform(cx0, cx1, CAR_POINTS),
+                    rng.uniform(cy0, cy1, CAR_POINTS),
+                    rng.uniform(cz0, cz1, CAR_POINTS)], 1)
+    return np.concatenate([ground, walls]), car
+
+
+def nn_ties_ok(queries, points, got, want):
+    """The queries whose neighbour ``got`` (f32 search) differs from
+    ``want`` (f64), and how many of them do not tie: their two candidates'
+    squared distances, in f64, differ by more than the f32 rounding of the
+    inputs can move them (each coordinate by |x| 2^-24)."""
+    import numpy as np
+    diff = np.nonzero(got != want)[0]
+    q = queries[diff]
+    d_got = ((q - points[got[diff]]) ** 2).sum(1)
+    d_want = ((q - points[want[diff]]) ** 2).sum(1)
+    scale = np.abs(np.concatenate([queries, points])).max()
+    tol = 8 * 2.0 ** -24 * scale * (np.sqrt(d_got) + np.sqrt(d_want)) \
+        + 4 * 2.0 ** -24 * (d_got + d_want)
+    return len(diff), int((np.abs(d_got - d_want) > tol).sum())
+
+
+def write_raw_scenario(root, scenario, ids, rng):
+    """The raw layout the index-CSV builder reads (file names only, for
+    the sensors; 64 power lines for the beams) for frame ids ``ids``."""
+    import numpy as np
+    u1 = os.path.join(root, scenario, "unit1")
+    u2 = os.path.join(root, scenario, "unit2")
+    names = {"camera_data": "image_BS1_{}.jpg", "radar_data": "radar_{}.npy",
+             "lidar_data": "lidar_{}.ply", "mmWave_data": "mmWave_power_{}.txt"}
+    for sub, pattern in names.items():
+        os.makedirs(os.path.join(u1, sub), exist_ok=True)
+        for i in ids:
+            path = os.path.join(u1, sub, pattern.format(i))
+            with open(path, "w") as f:
+                if sub == "mmWave_data":
+                    # one width, so the text's max is the power's max
+                    f.write("".join(f"{v:.6f}\n" for v in
+                                    rng.uniform(0.1, 0.9, 64)))
+    os.makedirs(os.path.join(u2, "GPS_data"), exist_ok=True)
+    os.makedirs(os.path.join(u1, "GPS_data"), exist_ok=True)
+    for i in ids:
+        np.savetxt(os.path.join(u2, "GPS_data", f"gps_location_{i}.txt"),
+                   [33.42, -111.93])
+
+
+def phase_preprocess(card):
+    """The offline data path on a synthetic raw scenario under
+    build/preprocess, at real sizes:
+
+    - radar: RADAR_CUBES raw cubes (4, 256, 250) complex64 through
+      data/preprocess/radar.py's process_scenario on the card (64 a device
+      call); every written map held to the numpy chain within
+      RADAR_MAP_ATOL; cubes/s end to end, and one 64-cube radar_maps call
+      by CUDA events;
+    - LiDAR: a static scene of ~18,500 points, LIDAR_FRAMES jittered
+      frames and a car in the last, through lidar_filter.process_scenario
+      with the cuda, native and kdtree backends (frames/s each): the
+      written clouds equal, the car kept whole, the static points dropped;
+      the cuda search's neighbours against the k-d tree's on the filter's
+      queries, every difference a tie at f32 rounding (checked in f64);
+    - writers: csv_builder's root CSV of a raw layout (its rows and
+      labels), and, on a demo tree, radar maps from raw cubes, filtered
+      clouds (cuda), augment's camera, LiDAR and radar variants of the
+      adaptation split, and its scenario CSVs;
+    - training: the train CLI's main one epoch on that tree at the
+      quickstart's debug geometry with --filtered 1 --augmentation 1: the
+      dataset reads filtered and augmented files, and every train step
+      launches DEBUG_SCAN_LAUNCHES scan forwards and backwards."""
+    import multiprocessing
+    import shutil
+    from concurrent.futures import ProcessPoolExecutor
+
+    import numpy as np
+    import torch
+    from deepsense6g_tii_tpu_torch.data import dataset as ds
+    from deepsense6g_tii_tpu_torch.data import features as F
+    from deepsense6g_tii_tpu_torch.data.preprocess import augment, csv_builder
+    from deepsense6g_tii_tpu_torch.data.preprocess import lidar_filter as LF
+    from deepsense6g_tii_tpu_torch.data.preprocess import radar
+    from deepsense6g_tii_tpu_torch.ops import selective_scan as ss
+    from deepsense6g_tii_tpu_torch.tools import timing
+    from deepsense6g_tii_tpu_torch.utils import ply
+    from deepsense6g_tii_tpu_torch.utils.demo_data import make_demo_root
+
+    t_start = time.perf_counter()
+    base = os.path.join(REPO, "build", "preprocess")
+    shutil.rmtree(base, ignore_errors=True)
+    rng = np.random.default_rng(0)
+    out = {}
+
+    # -- radar ----------------------------------------------------------------
+    raw = os.path.join(base, "radar", "unit1", "radar_data")
+    os.makedirs(raw)
+    for i in range(RADAR_CUBES):
+        target = (rng.integers(0, 4), rng.integers(0, 256),
+                  rng.integers(0, 250))
+        np.save(os.path.join(raw, f"{i}.npy"), radar_cube(rng, target))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    written = radar.process_scenario(raw, device=DEVICE)
+    secs = time.perf_counter() - t0
+    check(len(written) == RADAR_CUBES, f"preprocess radar: {len(written)} "
+          f"of {RADAR_CUBES} cubes written")
+    parent = os.path.dirname(raw)
+    jobs = [(os.path.join(raw, f), os.path.join(parent, "radar_data_ang", f),
+             os.path.join(parent, "radar_data_vel", f)) for f in written]
+    with ProcessPoolExecutor(min(8, os.cpu_count() or 1),
+                             mp_context=multiprocessing.get_context(
+                                 "spawn")) as pool:
+        errs = list(pool.map(radar_map_errors, jobs))
+    check(all(ok for ok, _, _ in errs), "preprocess radar: a written map "
+          "has the wrong shape or dtype")
+    ra_err = max(e for _, e, _ in errs)
+    rv_err = max(e for _, _, e in errs)
+    check(max(ra_err, rv_err) <= RADAR_MAP_ATOL, f"preprocess radar: maps "
+          f"off the numpy chain by {ra_err:.3g} (range-angle), {rv_err:.3g} "
+          f"(range-velocity), bound {RADAR_MAP_ATOL}")
+    cubes = torch.from_numpy(np.stack(
+        [np.load(j[0]) for j in jobs[:64]])).to(DEVICE)
+    call_ms = timing.time_ms(lambda: F.radar_maps(cubes), DEVICE, iters=5,
+                             warmup=1)
+    del cubes
+    torch.cuda.empty_cache()
+    out["radar"] = {"cubes": RADAR_CUBES, "seconds": secs,
+                    "cubes_per_s": RADAR_CUBES / secs,
+                    "max_abs_err_ra": ra_err, "max_abs_err_rv": rv_err,
+                    "radar_maps_64_ms": call_ms}
+    print(f"preprocess radar on {card}: " + json.dumps(out["radar"]))
+
+    # -- LiDAR ----------------------------------------------------------------
+    static, car = lidar_scene(rng)
+    src = os.path.join(base, "lidar", "scenario32", "unit1", "lidar_data")
+    os.makedirs(src)
+    frames = []
+    for i in range(LIDAR_FRAMES):
+        f = static + rng.normal(0, LIDAR_JITTER, static.shape)
+        if i == LIDAR_FRAMES - 1:
+            f = np.concatenate([f, car])
+        ply.write_points(os.path.join(src, f"{i}.ply"), f)
+        frames.append(ply.read_points(os.path.join(src, f"{i}.ply")))
+    check(all(len(f) >= LF.SCENARIO_MIN_POINTS["scenario32"]
+              for f in frames), "preprocess lidar: a frame below min_points")
+    lidar, clouds = {}, {}
+    for backend in LF.BACKENDS:
+        dst = src + f"_filtered_{backend}"
+        t0 = time.perf_counter()
+        bg = LF.process_scenario([src], [dst], "scenario32", backend=backend,
+                                 device=DEVICE)
+        secs = time.perf_counter() - t0
+        clouds[backend] = {f: open(os.path.join(dst, f), "rb").read()
+                           for f in sorted(os.listdir(dst))}
+        lidar[backend] = {"seconds": secs, "frames_per_s": LIDAR_FRAMES / secs,
+                          "background_points": len(bg)}
+    check(clouds["cuda"] == clouds["native"] == clouds["kdtree"],
+          "preprocess lidar: the backends wrote different clouds")
+    last = ply.read_points(os.path.join(src + "_filtered_cuda",
+                                        f"{LIDAR_FRAMES - 1}.ply"))
+    (cx0, cx1), (cy0, cy1), (cz0, cz1) = CAR_BOX
+    in_box = ((last[:, 0] >= cx0) & (last[:, 0] <= cx1) & (last[:, 1] >= cy0)
+              & (last[:, 1] <= cy1) & (last[:, 2] >= cz0)
+              & (last[:, 2] <= cz1)).sum()
+    kept = [len(ply.read_points(os.path.join(src + "_filtered_cuda",
+                                             f"{i}.ply")))
+            for i in range(LIDAR_FRAMES)]
+    check(in_box == CAR_POINTS and kept[-1] <= CAR_POINTS
+          + 0.01 * len(static) and max(kept[:-1]) <= 0.01 * len(static),
+          f"preprocess lidar: kept {kept} points a frame, {in_box} of the "
+          f"car's {CAR_POINTS}")
+    # the filter pass's queries: the last frame against the background
+    bg = LF.build_background(frames, 0, "kdtree")
+    want = LF.nearest_neighbors_kdtree(frames[-1], bg)
+    nn_ms = {}
+    for backend in LF.BACKENDS:
+        t0 = time.perf_counter()
+        got = LF._nn(frames[-1], bg, backend, DEVICE)
+        nn_ms[backend] = 1e3 * (time.perf_counter() - t0)
+        if backend == "cuda":
+            n_diff, n_bad = nn_ties_ok(frames[-1], bg, got, want)
+    check(n_bad == 0, f"preprocess lidar: {n_bad} of {n_diff} cuda "
+          f"neighbours that differ from the k-d tree's are no ties")
+    out["lidar"] = {"points": [len(f) for f in frames], "kept": kept,
+                    "car_kept": int(in_box), "backends": lidar,
+                    "nn_queries": len(frames[-1]), "nn_points": len(bg),
+                    "nn_ms": nn_ms, "nn_differ": n_diff, "nn_not_ties": n_bad}
+    print(f"preprocess lidar on {card}: " + json.dumps(out["lidar"]))
+
+    # -- the writers ----------------------------------------------------------
+    raw_root = os.path.join(base, "raw")
+    write_raw_scenario(raw_root, "scenario32", range(60), rng)
+    n_rows = csv_builder.create_root_csv(raw_root, "root.csv", 5, 1,
+                                         ["scenario32"])
+    with open(os.path.join(raw_root, "root.csv"), newline="") as f:
+        rows = list(csv.reader(f))
+    # a row for every beam id but the last whose GPS ids (12 and 6 back)
+    # exist: ids 12..58
+    check(rows[0] == csv_builder.create_row_head(5, 1)
+          and len(rows) - 1 == n_rows == 60 - 1 - 12,
+          f"preprocess csv_builder: {n_rows} rows, header {rows[0]}")
+    for r in rows[1:]:
+        power = np.loadtxt(os.path.join(raw_root, r[-2]))
+        check(r[-1] == str(int(power.argmax()) + 1),
+              f"preprocess csv_builder: label {r[-1]} of {r[-2]}")
+
+    tree = os.path.join(base, "tree")
+    make_demo_root(tree, n_train=3, n_adapt=2, n_test=2, seq_len=2)
+    splits = ("Multi_Modal", "Adaptation_dataset_multi_modal")
+    n_cubes = 0
+    for split in splits:
+        for scen in ("scenario31", "scenario32"):
+            unit = os.path.join(tree, split, scen, "unit1")
+            raw_dir = os.path.join(unit, "radar_data")
+            os.makedirs(raw_dir)
+            for f in sorted(os.listdir(os.path.join(unit, "radar_data_ang"))):
+                np.save(os.path.join(raw_dir, f), radar_cube(
+                    rng, (1, rng.integers(0, 256), rng.integers(0, 250))))
+            n_cubes += len(radar.process_scenario(raw_dir, device=DEVICE))
+            LF.process_scenario([os.path.join(unit, "lidar_data")],
+                                [os.path.join(unit, "lidar_data_filtered")],
+                                scen, backend="cuda", min_points=0,
+                                device=DEVICE)
+    adapt = os.path.join(tree, splits[1])
+    n_aug = {"camera": 0, "lidar": 0, "radar": 0}
+    for scen in ("scenario31", "scenario32"):
+        unit = os.path.join(adapt, scen, "unit1")
+        n_aug["camera"] += augment.augment_image_dir(
+            os.path.join(unit, "camera_data"),
+            os.path.join(unit, "camera_data_aug"))
+        n_aug["lidar"] += augment.augment_lidar_dir(
+            os.path.join(unit, "lidar_data"),
+            os.path.join(unit, "lidar_data_aug"))
+        n_aug["radar"] += augment.augment_radar_dirs(
+            os.path.join(unit, "radar_data_ang"),
+            os.path.join(unit, "radar_data_vel"))
+    per_scen = {}
+    for i in (1, 2, 3):
+        per_scen[f"scenario3{i}"] = csv_builder.create_scenario_csv(
+            os.path.join(adapt, "ml_challenge_data_adaptation_multi_modal.csv"),
+            os.path.join(adapt, f"scenario3{i}"), f"scenario3{i}")
+    check(min(n_aug.values()) > 0 and per_scen["scenario31"] > 0
+          and per_scen["scenario32"] > 0, f"preprocess writers: {n_aug}, "
+          f"{per_scen}")
+    out["writers"] = {"root_csv_rows": n_rows, "tree_radar_cubes": n_cubes,
+                      "augmented": n_aug, "scenario_csv_rows": per_scen}
+    print("preprocess writers: " + json.dumps(out["writers"]))
+
+    # -- training on the tree -------------------------------------------------
+    seen = {"lidar_data_filtered/": 0, "lidar_data_aug/": 0,
+            "camera_data_aug/": 0, "radar_data_ang_aug/": 0}
+    real = {m: getattr(ds.BeamDataset, m)
+            for m in ("_camera_path", "_lidar_path", "_radar_path")}
+
+    def seeing(method):
+        def path(self, t, index):
+            p = method(self, t, index)
+            for k in seen:
+                seen[k] += k in p
+            return p
+        return path
+
+    counts = []
+    logdir = os.path.join(base, "log")
+    argv = ["--data_root", tree, "--logdir", logdir, "--device", DEVICE,
+            "--seq_len", "2", "--batch_size", "4", "--filtered", "1",
+            "--augmentation", "1", "--scheduler", "0", "--num_workers", "2",
+            "--compute_dtype", "bfloat16", "--input_resolution", "64",
+            "--vert_anchors", "2", "--horz_anchors", "2", "--n_layer", "1",
+            "--backbone_blocks", "1,1,1,1", "--epochs", "1"]
+    for m, f in real.items():
+        setattr(ds.BeamDataset, m, seeing(f))
+    try:
+        secs = cli_run(argv, counts, "preprocess")
+    finally:
+        for m, f in real.items():
+            setattr(ds.BeamDataset, m, f)
+    expect = {ss.KERNEL: DEBUG_SCAN_LAUNCHES, ss.KERNEL_BWD:
+              DEBUG_SCAN_LAUNCHES}
+    check(counts and all(c == expect for c in counts),
+          f"preprocess train: launches a step {counts}, expected {expect}")
+    check(min(seen.values()) > 0, f"preprocess train: files read {seen}")
+    with open(os.path.join(logdir, "scalars.jsonl")) as f:
+        losses = [json.loads(ln)["value"] for ln in f
+                  if json.loads(ln)["tag"] == "curr_loss_train"]
+    check(losses and all(math.isfinite(v) for v in losses),
+          f"preprocess train: losses {losses}")
+    out["train"] = {"seconds": secs, "steps": len(counts),
+                    "launches_per_step": counts[0], "files_read": seen,
+                    "loss": losses}
+    out["seconds"] = time.perf_counter() - t_start
+    print(f"preprocess train on {card}: " + json.dumps(out["train"])
+          + f"; phase {out['seconds']:.1f} s")
+    return out
+
+
+def phase_quickstart(card):
+    """The zero-data entry point: python -m deepsense6g_tii_tpu_torch.
+    examples.quickstart through its main (--device cuda, 2 epochs) in a
+    work directory under build/: every artifact exists, beam_pred.csv has
+    one row of beams in 1..64 per test sample, the working directory is
+    restored, and every train step launches DEBUG_SCAN_LAUNCHES scan
+    forwards and backwards."""
+    import shutil
+    from deepsense6g_tii_tpu_torch.examples import quickstart
+    from deepsense6g_tii_tpu_torch.ops import selective_scan as ss
+
+    work = os.path.join(REPO, "build", "quickstart")
+    shutil.rmtree(work, ignore_errors=True)
+    counts, cwd = [], os.getcwd()
+    t0 = time.perf_counter()
+    with counted_train_steps(counts):
+        rc = quickstart.main(["--device", DEVICE, "--workdir", work])
+    secs = time.perf_counter() - t0
+    check(rc == 0 and os.getcwd() == cwd, f"quickstart: main returned {rc}, "
+          f"working directory {os.getcwd()}")
+    logdir = os.path.join(work, "log", "quickstart")
+    missing = [f for f in quickstart.ARTIFACTS
+               if not os.path.exists(os.path.join(logdir, f))]
+    check(not missing, f"quickstart: missing {missing}")
+    with open(os.path.join(work, "beam_pred.csv"), newline="") as f:
+        rows = list(csv.reader(f))[1:]
+    n_test = 2 * 2                 # 2 test samples in each of 2 scenarios
+    check(len(rows) == n_test and all(1 <= int(b) <= 64 for r in rows
+                                      for b in r[1:]),
+          f"quickstart: beam_pred.csv rows {rows}")
+    expect = {ss.KERNEL: DEBUG_SCAN_LAUNCHES, ss.KERNEL_BWD:
+              DEBUG_SCAN_LAUNCHES}
+    check(counts and all(c == expect for c in counts),
+          f"quickstart: launches a step {counts}, expected {expect}")
+    out = {"seconds": secs, "steps": len(counts),
+           "launches_per_step": counts[0], "test_rows": len(rows)}
+    print(f"quickstart on {card}: " + json.dumps(out))
+    return out
+
+
 def phase_kernels_30to5(sfu_rate, tokens, scan_shapes):
     """Kernels #1, #2, #6 and #9 at the 30-to-5 path's shapes (B = 8, bf16;
     T = ``tokens`` at each head dim, dropout 0 and 0.1; the scan at each
@@ -3191,6 +3680,12 @@ def main(argv=None):
     # this slice's main path: the modality-rebuild subsystem (the trainer's
     # steps through the fusion model in eval mode, the rebuild CLI, VFA)
     reb = phase_rebuild(card)
+    # this slice's main paths: the tools (bench_serve, profile_step,
+    # bench_matrix), the offline data path with a training epoch on the
+    # tree it wrote, and the quickstart
+    tools = phase_tools(card)
+    prep = phase_preprocess(card)
+    quick = phase_quickstart(card)
 
     # Per forward of the serving path at batch 8 in bf16: the flash kernel's
     # 8 launches at each of the four stage shapes (dropout 0); the scan's 16
@@ -3313,6 +3808,18 @@ def main(argv=None):
                 "gpt_step": reb["gpt"]["launches_per_step"].get(name, 0),
                 "cli_step": reb["cli"]["launches_per_step"].get(name, 0)}
 
+    def launches_tools_data(name):
+        """Launches a step on the tools and data paths: the profiled GPT
+        and MambaFuser steps (tools phase), the train step on the
+        preprocessed tree (preprocess phase), the quickstart's."""
+        return {"profile_step_gpt": tools["gpt"]["profile"][
+                    "launches_per_step"].get(name, 0),
+                "profile_step_mamba": tools["mamba"]["profile"][
+                    "launches_per_step"].get(name, 0),
+                "preprocess_train": prep["train"][
+                    "launches_per_step"].get(name, 0),
+                "quickstart": quick["launches_per_step"].get(name, 0)}
+
     def at_30to5(rows, n, p=None):
         """The 30-to-5 rows' sums: per training step (``p`` = DROP_P) or
         serving forward (``p`` = 0) for the flash rows, 8 launches at each
@@ -3362,6 +3869,7 @@ def main(argv=None):
                 "cache_launches_per_step": cache_launches(name),
                 "launches_30to5": launches_30to5(name),
                 "launches_rebuild": launches_rebuild(name),
+                "launches_tools_data": launches_tools_data(name),
                 "max_abs_err": err, "ms": ms, "plain_ms": plain,
                 "bound_ms": bound, "bound_by": by, "library_ms": library,
                 **extra}
@@ -3443,6 +3951,7 @@ def main(argv=None):
             "cache_launches_per_step": cache_launches(name),
             "launches_30to5": launches_30to5(name),
             "launches_rebuild": launches_rebuild(name),
+            "launches_tools_data": launches_tools_data(name),
             **({f"per_{'forward' if name == ss.KERNEL else 'step'}_30to5":
                 at_30to5(k30["scan_fwd" if name == ss.KERNEL
                              else "scan_bwd"], v30["scan_shapes"])}
@@ -3478,6 +3987,7 @@ def main(argv=None):
         "cache_launches_per_step": cache_launches(ss.KERNEL_SEQ),
         "launches_30to5": launches_30to5(ss.KERNEL_SEQ),
         "launches_rebuild": launches_rebuild(ss.KERNEL_SEQ),
+        "launches_tools_data": launches_tools_data(ss.KERNEL_SEQ),
         "max_abs_err": max(r["max_abs_err"] for r in seq_rows),
         **{k: per_forward(seq_main, SCAN_LAUNCHES, k)
            for k in ("ms", "plain_ms", "bound_ms")},
@@ -3510,6 +4020,7 @@ def main(argv=None):
         "cache_launches_per_step": cache_launches(sr.KERNEL_CHAIN),
         "launches_30to5": launches_30to5(sr.KERNEL_CHAIN),
         "launches_rebuild": launches_rebuild(sr.KERNEL_CHAIN),
+        "launches_tools_data": launches_tools_data(sr.KERNEL_CHAIN),
         "max_abs_err": max(r["max_abs_err"] for r in chain_rows),
         **{k: sum(r[k] for r in chain_rows)
            for k in ("ms", "plain_ms", "bound_ms")},
@@ -3517,7 +4028,9 @@ def main(argv=None):
                      >= sum(r["ops_ms"] for r in chain_rows)
                      else "operations"),
         "library_ms": None})
-    print(f"chip_smoke on {card}: {time.perf_counter() - t_start:.1f} s")
+    print(f"chip_smoke on {card}: {time.perf_counter() - t_start:.1f} s "
+          f"(tools {tools['seconds']:.1f} s, preprocess "
+          f"{prep['seconds']:.1f} s, quickstart {quick['seconds']:.1f} s)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

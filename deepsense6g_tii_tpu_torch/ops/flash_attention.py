@@ -55,6 +55,25 @@ KERNEL_DQ = "flash_attention_bwd_dq"
 KERNEL_DKV = "flash_attention_bwd_dkv"
 KERNEL_MASK = "flash_dropout_mask"
 LIBRARIES = (KERNEL, BWD_LIBRARY, KERNEL_MASK)
+# The device kernels of these wrappers' CUDA sources (csrc/), by name ->
+# the KERNEL names of the wrappers that launch them, for
+# tools/profile_step.py.  A kernel that one bool template parameter sends to
+# one of two wrappers stands in DEVICE_KERNEL_FLAGS with (the parameter's
+# position, its name in the source); its wrappers are (false, true).  A
+# kernel of several wrappers and no flag is a pass they share.
+DEVICE_KERNELS = {
+    "flash_fwd_kernel": (KERNEL,),
+    "flash_fwd_mma_kernel": (KERNEL,),
+    "flash_bwd_prep_kernel": (KERNEL_MERGED, KERNEL_DQ),
+    "flash_bwd_mma_kernel": (KERNEL_MERGED,),
+    "cast_bf16_kernel": (KERNEL_MERGED,),
+    "flash_bwd_dkv_kernel": (KERNEL_DKV, KERNEL_MERGED),
+    "flash_bwd_dkv_mma_kernel": (KERNEL_DKV,),
+    "flash_bwd_dq_kernel": (KERNEL_DQ,),
+    "flash_bwd_dq_mma_kernel": (KERNEL_DQ,),
+    "dropout_mask_kernel": (KERNEL_MASK,),
+}
+DEVICE_KERNEL_FLAGS = {"flash_bwd_dkv_kernel": (1, "MERGED")}
 HEAD_DIMS = (16, 32, 64, 128)
 DEFAULT_BLOCK = 512
 _DTYPES = (torch.float32, torch.bfloat16)

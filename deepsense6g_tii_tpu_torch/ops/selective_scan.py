@@ -69,6 +69,19 @@ KERNEL_REV = "selective_scan_fwd_rev"
 KERNEL_SEQ = "selective_scan_seq"
 KERNEL_BWD = "selective_scan_bwd"
 KERNEL_BWD_REV = "selective_scan_bwd_rev"
+# the device kernels of csrc/selective_scan_*.cu -> their wrappers' KERNEL
+# names, as flash_attention.DEVICE_KERNELS states them
+DEVICE_KERNELS = {
+    "scan_fwd_kernel": (KERNEL, KERNEL_REV),
+    "scan_carry_kernel": (KERNEL, KERNEL_REV, KERNEL_BWD, KERNEL_BWD_REV),
+    "scan_seq_kernel": (KERNEL_SEQ,),
+    "scan_bwd_local_kernel": (KERNEL_BWD, KERNEL_BWD_REV),
+    "scan_bwd_kernel": (KERNEL_BWD, KERNEL_BWD_REV),
+    "scan_bwd_sums_kernel": (KERNEL_BWD, KERNEL_BWD_REV),
+}
+DEVICE_KERNEL_FLAGS = {"scan_fwd_kernel": (1, "REV"),
+                       "scan_bwd_local_kernel": (1, "REV"),
+                       "scan_bwd_kernel": (1, "REV")}
 # the kernels' layout, as csrc/selective_scan.cuh states it: the states per
 # channel, the steps per chunk-entry state h_in, and the channels per block
 # of the backward's dB/dC partials; and the forward's channels per block

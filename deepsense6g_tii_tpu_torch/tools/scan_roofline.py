@@ -47,6 +47,9 @@ from . import timing
 LIBRARY = "scan_roofline_chain"
 LIBRARIES = (LIBRARY,)
 KERNEL_CHAIN = "scan_roofline_chain"      # launch count name
+# its device kernel, as ops/flash_attention.DEVICE_KERNELS states them
+DEVICE_KERNELS = {"chain_kernel": (KERNEL_CHAIN,)}
+DEVICE_KERNEL_FLAGS = {}
 _K = _build.header_constants("scan_roofline_chain.cu")
 MUL_K = (_K["MUL_K_LO"], _K["MUL_K_HI"])
 EXP_K = (_K["EXP_K_LO"], _K["EXP_K_HI"])

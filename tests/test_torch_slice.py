@@ -226,7 +226,16 @@ def test_package_imports_with_jax_blocked():
             "deepsense6g_tii_tpu_torch.models.checkpoint_import",
             "deepsense6g_tii_tpu_torch.models.torch_port",
             "deepsense6g_tii_tpu_torch.models.msgpack",
-            "deepsense6g_tii_tpu_torch.serve"} <= set(modules)
+            "deepsense6g_tii_tpu_torch.serve",
+            "deepsense6g_tii_tpu_torch.data.preprocess.radar",
+            "deepsense6g_tii_tpu_torch.data.preprocess.lidar_filter",
+            "deepsense6g_tii_tpu_torch.data.preprocess.augment",
+            "deepsense6g_tii_tpu_torch.data.preprocess.csv_builder",
+            "deepsense6g_tii_tpu_torch.examples.quickstart",
+            "deepsense6g_tii_tpu_torch.tools.trace",
+            "deepsense6g_tii_tpu_torch.tools.bench_serve",
+            "deepsense6g_tii_tpu_torch.tools.profile_step",
+            "deepsense6g_tii_tpu_torch.tools.bench_matrix"} <= set(modules)
     code = ("import sys, importlib\n"
             "for m in ('jax', 'jaxlib', 'flax', 'msgpack',\n"
             "          'deepsense6g_tii_tpu'):\n"
