@@ -146,6 +146,21 @@ Phases, in order; any failure exits non-zero and prints no result:
             phases' counts (32 flash, 67 scan) and nothing else.  Prints
             main's p50/p90 and whether the msgpack module is installed
             (information only: the port's msgpack reader needs none).
+10b. export the serving artifact: the custom ops of the flash forward
+            and the chunked scan forward pass torch.library.opcheck on the
+            card (bf16, one small shape, the scan both ways); both
+            full-width models (seed-0 weights, bf16, 962 tokens) exported
+            by Predictor.export_artifact at batch 8 under build/export, each
+            graph holding 32 flash or 67 scan custom-op nodes and none of
+            the plain versions' ops (matmul and a softmax per attention,
+            the doubling scan's addcmul); a fresh process (this script with
+            --serve-exported) loads them by ExportedPredictor alone, no
+            model built and no checkpoint, and serves the same seeded
+            requests: 32 flash or 67 scan launches a forward, top-k equal
+            to the live Predictor's, confidences within 1e-3 (the largest
+            error printed), a ragged request padded and an oversize one
+            refused.  Prints export, save and load seconds, the artifact's
+            MB, and the exported against the live p50/p90 at batch 1 and 8.
 11. 30to5   the 30-to-5 variant (config_30to5: 10 frames, 5 predicted
             beams, 1922 tokens), full width, bf16, as phases 4-7 run the
             5-frame models.  First kernels #1, #2 (and the split pair #3,
@@ -385,6 +400,12 @@ CONVERGE_STEPS, CONVERGE_BATCH, CONVERGE_LR = 40, 8, 1e-4
 DBA_FLOOR_MAX, DBA_MIN, DBA_EMA_SLACK, DBA_CURVE_RISE = 0.3, 0.8, 0.02, 0.3
 # the serve phase: serve.main's request batch and latency requests
 SERVE_BATCH, SERVE_ITERS = 8, 10
+# the export phase: timed requests a leg, the rows of its ragged request,
+# and the bound on the artifact's confidences against the live Predictor's
+EXPORT_ITERS, EXPORT_RAGGED, EXPORT_CONF_ATOL = 10, 3, 1e-3
+# in the order they are exported: the MambaFuser's artifact loads while the
+# GPT TransFuser's is traced and saved
+EXPORT_MODELS = ("mamba", "gpt")
 # the 30to5 phase's training steps, MambaFuser and GPT TransFuser
 STEPS_30TO5, GPT_STEPS_30TO5 = 5, 3
 # the rebuild phase: MambaFuser rebuild steps and eval steps, GPT rebuild
@@ -3045,6 +3066,283 @@ def phase_quickstart(card):
     return out
 
 
+def opcheck_ops():
+    """torch.library.opcheck of the serving kernels' custom ops on the
+    card at one small shape each (bf16, as they serve): the schema, the
+    fake implementation's shapes, dtypes and strides against the kernel's
+    real outputs, and the op under AOT dispatch with dynamic shapes.  The
+    kernels' launches here are not counted on any path."""
+    import torch
+    from deepsense6g_tii_tpu_torch.ops import flash_attention as fa
+    from deepsense6g_tii_tpu_torch.ops import selective_scan as ss
+
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    rnd = lambda *s: torch.randn(*s, device=DEVICE,  # noqa: E731
+                                 generator=gen)
+    q, k, v = (rnd(2, HEADS, 70, 64).bfloat16() for _ in range(3))
+    results = {"flash": torch.library.opcheck(
+        fa.flash_fwd_op, (q, k, v, 0.125, 0.0, 0, fa.DEFAULT_BLOCK))}
+    d = 64
+    u, x_dbl = rnd(2, 130, d).bfloat16(), rnd(2, 130, 2 + 2 * D_STATE)
+    dt = torch.nn.functional.softplus(rnd(2, 130, d))
+    A = -torch.arange(1, D_STATE + 1, dtype=torch.float32,
+                      device=DEVICE).expand(2, d, D_STATE).contiguous()
+    x_dbl = x_dbl.bfloat16()
+    B, C = x_dbl[..., 2:2 + D_STATE], x_dbl[..., 2 + D_STATE:]
+    for reverse in (False, True):
+        results[f"scan reverse={reverse}"] = torch.library.opcheck(
+            ss.scan_fwd_op, (u, dt, A, B, C, reverse))
+    for name, r in results.items():
+        check(set(r.values()) == {"SUCCESS"}, f"export: opcheck {name}: {r}")
+    return {name: sorted(r) for name, r in results.items()}
+
+
+def export_graph_checks(label, ops, kernel, n):
+    """The exported serving graph's ops (``ops``: serve.graph_ops): ``n``
+    nodes of ``kernel``'s custom op, none of the other serving kernel's,
+    and none of the ops that the plain versions trace to (the attention's
+    matmuls and softmax, the serving softmax alone staying; the doubling
+    scan's addcmul)."""
+    from deepsense6g_tii_tpu_torch import serve
+    from deepsense6g_tii_tpu_torch.ops import flash_attention as fa
+    op = serve.KERNEL_OPS[kernel]
+    other = [v for k, v in serve.KERNEL_OPS.items() if k != kernel]
+    check(ops.get(op, 0) == n and not any(o in ops for o in other),
+          f"export {label}: {ops.get(op, 0)} nodes of {op} (expected {n}), "
+          f"{[(o, ops[o]) for o in other if o in ops]} of the other kernel")
+    if kernel == fa.KERNEL:
+        check("aten.matmul.default" not in ops
+              and ops.get("aten.softmax.int") == 1,
+              f"export {label}: the plain attention's ops in the graph: "
+              f"matmul {ops.get('aten.matmul.default')}, softmax "
+              f"{ops.get('aten.softmax.int')}")
+    else:
+        check("aten.addcmul.default" not in ops,
+              f"export {label}: the plain scan's addcmul in the graph")
+
+
+def wait_for(path, what, alive, timeout=900):
+    """Polls for ``path``, which the other process of the export phase
+    writes; fails after ``timeout`` seconds or once ``alive()``, whether
+    that process still runs, is false."""
+    t0 = time.perf_counter()
+    while not os.path.exists(path):
+        check(time.perf_counter() - t0 < timeout and alive(),
+              f"export: no {what} after {time.perf_counter() - t0:.0f} s")
+        time.sleep(0.05)
+
+
+def serve_exported(folder, device):
+    """The fresh process of the export phase (``--serve-exported``): serves
+    the artifacts of EXPORT_MODELS in ``folder`` by ExportedPredictor
+    alone, with no checkpoint and no BeamFuser built, on their seeded
+    requests, each loaded as soon as the phase has written it.  Writes
+    ``loaded`` once both are loaded and checked, and times them only after
+    the phase writes ``go`` (its own timings done): what it served, the
+    launches of one forward, the loaded graph's ops, the load time and the
+    p50/p90 of a request of 1 and of BATCH rows."""
+    import numpy as np
+    import torch
+    from deepsense6g_tii_tpu_torch import serve
+    from deepsense6g_tii_tpu_torch.models import fuser
+    from deepsense6g_tii_tpu_torch.ops import _build
+
+    def no_model(*a, **k):
+        raise AssertionError("the artifact's process built a BeamFuser")
+
+    fuser.BeamFuser.__init__ = no_model
+    phase_alive = lambda: os.getppid() != 1  # noqa: E731
+    cuda = device.startswith("cuda")
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    if cuda:
+        torch.cuda.init()       # while the phase exports
+    out, preds = {}, {}
+    for name in EXPORT_MODELS:
+        path = os.path.join(folder, f"{name}.pt2")
+        wait_for(path, f"{name}.pt2", phase_alive)
+        req = np.load(os.path.join(folder, f"{name}.npz"))
+        x = [req[k] for k in ("image", "lidar", "radar", "gps")]
+        t0 = time.perf_counter()
+        pred = serve.ExportedPredictor(path, device=device)
+        load_s = time.perf_counter() - t0
+        pred.predict(*x)                                       # warm
+        sync()
+        _build.reset_launch_counts()
+        idx, conf = pred.predict(*x)
+        sync()
+        leg = {"load_s": load_s, "batch": pred.batch,
+               "launches": dict(_build.KERNEL_LAUNCHES),
+               "ops": serve.graph_ops(pred.program)}
+        ragged = pred.predict(*(a[:EXPORT_RAGGED] for a in x))
+        try:
+            pred.predict(*(np.concatenate([a, a[:1]]) for a in x))
+            leg["oversize"] = None
+        except ValueError as e:
+            leg["oversize"] = str(e)
+        np.savez(os.path.join(folder, f"{name}.served.npz"), idx=idx,
+                 conf=conf, ragged_idx=ragged[0], ragged_conf=ragged[1])
+        out[name], preds[name] = leg, (pred, x)
+    open(os.path.join(folder, "loaded"), "w").close()
+    wait_for(os.path.join(folder, "go"), "go", phase_alive)
+    for name, (pred, x) in preds.items():
+        for rows in (1, pred.batch):
+            times = []
+            for _ in range(EXPORT_ITERS):
+                t0 = time.perf_counter()
+                pred.predict(*(a[:rows] for a in x))
+                times.append((time.perf_counter() - t0) * 1e3)
+            out[name][f"b{rows}"] = {
+                "p50_ms": float(np.percentile(times, 50)),
+                "p90_ms": float(np.percentile(times, 90))}
+    with open(os.path.join(folder, "served.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def phase_export(card):
+    """The serving artifact: both full-width models (bf16, seed-0 weights,
+    962 tokens) exported by Predictor.export_artifact at batch 8 under
+    build/export, each graph holding one custom-op node per kernel call
+    (32 flash, 67 scan) and none of the plain versions' ops; a fresh
+    process (this script with --serve-exported, started first so that its
+    start-up and each load overlap the next export) loads each artifact by
+    ExportedPredictor with no model and no checkpoint and serves the same
+    seeded requests: the launches of a forward, top-k indices equal to the
+    live Predictor's and confidences within EXPORT_CONF_ATOL (the largest
+    error printed), a ragged request padded, an oversize one refused.
+    Prints export_s, save_s, load_s, artifact_mb and the exported against
+    the live p50/p90 at batch 1 and 8 (the artifact pads a request of 1 to
+    its 8; the live predictor serves it at its bucket of 1 and, padded, at
+    8), the live timings first and the exported ones after, with nothing
+    else running.  The custom ops pass torch.library.opcheck on the card
+    first."""
+    import shutil
+    import numpy as np
+    import torch
+    from deepsense6g_tii_tpu_torch import serve
+    from deepsense6g_tii_tpu_torch.models.fuser import BeamFuser
+    from deepsense6g_tii_tpu_torch.ops import flash_attention as fa
+    from deepsense6g_tii_tpu_torch.ops import selective_scan as ss
+    from deepsense6g_tii_tpu_torch.utils.synth import make_synth_batch
+
+    t_start = time.perf_counter()
+    base = os.path.join(REPO, "build", "export")
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    log_path = os.path.join(base, "serving.log")
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                 "--serve-exported", base, DEVICE],
+                                cwd=REPO, stdout=log, stderr=subprocess.STDOUT)
+
+    def child_log():
+        with open(log_path) as f:
+            return f.read()[-4000:]
+
+    def child_alive():
+        check(proc.poll() is None,
+              f"export: the serving process ended:\n{child_log()}")
+        return True
+
+    try:
+        result, live, preds = {"opcheck": opcheck_ops()}, {}, {}
+        models = {"gpt": (serve.gpt_transfuser_config(), fa.KERNEL,
+                          4 * N_LAYER),
+                  "mamba": (serve.mambafuser_config(), ss.KERNEL,
+                            sum(SCAN_LAUNCHES.values()))}
+        for name in EXPORT_MODELS:
+            cfg, kernel, n = models[name]
+            model = BeamFuser(cfg, device=DEVICE,
+                              generator=torch.Generator().manual_seed(0))
+            pred = serve.Predictor(model, cfg, batch_buckets=(1, BATCH),
+                                   device=DEVICE)
+            b = make_synth_batch(cfg, BATCH, seed=1, with_labels=False)
+            x = [b[k] for k in ("image", "lidar", "radar", "gps")]
+            np.savez(os.path.join(base, f"{name}.npz"), **dict(zip(
+                ("image", "lidar", "radar", "gps"), x)))
+            path = os.path.join(base, f"{name}.pt2")
+            t0 = time.perf_counter()
+            program = pred.export_program(BATCH)
+            export_s = time.perf_counter() - t0
+            part = os.path.join(base, f"{name}.part.pt2")
+            torch.export.save(program, part)
+            os.replace(part, path)
+            save_s = time.perf_counter() - t0 - export_s
+            ops = serve.graph_ops(program)
+            export_graph_checks(name, ops, kernel, n)
+            del program
+            live[name] = {
+                "export_s": export_s, "save_s": save_s,
+                "artifact_mb": os.path.getsize(path) / 1e6,
+                "graph_nodes": sum(ops.values()),
+                "assert_nodes": ops.get(
+                    "aten._assert_tensor_metadata.default", 0),
+                "out": pred.predict(*x),
+                "ragged": pred.predict(*(a[:EXPORT_RAGGED] for a in x))}
+            preds[name] = (pred, serve.Predictor(
+                model, cfg, batch_buckets=(BATCH,), device=DEVICE))
+            del model
+        wait_for(os.path.join(base, "loaded"), "loaded artifacts",
+                 child_alive)
+        for name, (pred, padded) in preds.items():
+            live[name]["live"] = {
+                f"b{r}": pred.latency_benchmark(r, EXPORT_ITERS)
+                for r in (1, BATCH)}
+            live[name]["live_b1_padded"] = padded.latency_benchmark(
+                1, EXPORT_ITERS)
+        del preds, pred, padded
+        torch.cuda.empty_cache()
+        open(os.path.join(base, "go"), "w").close()
+        t0 = time.perf_counter()
+        proc.wait(timeout=600)
+        tail_s = time.perf_counter() - t0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    check(proc.returncode == 0,
+          f"export: the serving process failed:\n{child_log()}")
+    with open(os.path.join(base, "served.json")) as f:
+        served = json.load(f)
+    for name in EXPORT_MODELS:
+        cfg, kernel, n = models[name]
+        leg, lv = served[name], live[name]
+        got = np.load(os.path.join(base, f"{name}.served.npz"))
+        check(leg["batch"] == BATCH, f"export {name}: batch {leg['batch']}")
+        check(leg["launches"] == {kernel: n},
+              f"export {name}: launches of an exported forward "
+              f"{leg['launches']}, expected {{{kernel!r}: {n}}}")
+        export_graph_checks(f"{name} (loaded)", leg["ops"], kernel, n)
+        errs = {}
+        for key, (idx, conf) in (("b8", lv["out"]),
+                                 ("ragged", lv["ragged"])):
+            pre = "ragged_" if key == "ragged" else ""
+            check(np.array_equal(got[pre + "idx"], idx),
+                  f"export {name} {key}: top-k {got[pre + 'idx'].tolist()} "
+                  f"differ from the live Predictor's {idx.tolist()}")
+            errs[key] = float(np.abs(got[pre + "conf"] - conf).max())
+            check(errs[key] <= EXPORT_CONF_ATOL,
+                  f"export {name} {key}: confidences differ from the live "
+                  f"Predictor's by {errs[key]:.3g}")
+        check(leg["oversize"] is not None and "exceeds" in leg["oversize"],
+              f"export {name}: an oversize request was served")
+        result[name] = {
+            **{k: lv[k] for k in ("export_s", "save_s", "artifact_mb",
+                                  "graph_nodes", "assert_nodes")},
+            "load_s": leg["load_s"], "launches": leg["launches"],
+            "custom_op_nodes": leg["ops"][serve.KERNEL_OPS[kernel]],
+            "conf_max_abs_err": errs,
+            "bit_equal": all(v == 0.0 for v in errs.values()),
+            "exported": {k: leg[k] for k in ("b1", f"b{BATCH}")},
+            "live": lv["live"], "live_b1_padded": lv["live_b1_padded"]}
+        print(f"export {name}: conf max abs err {errs} (bit equal: "
+              f"{result[name]['bit_equal']})")
+    result["exported_timing_s"] = tail_s
+    result["seconds"] = time.perf_counter() - t_start
+    print(f"export on {card}: " + json.dumps(result))
+    return result
+
+
 def phase_kernels_30to5(sfu_rate, tokens, scan_shapes):
     """Kernels #1, #2, #6 and #9 at the 30-to-5 path's shapes (B = 8, bf16;
     T = ``tokens`` at each head dim, dropout 0 and 0.1; the scan at each
@@ -3594,7 +3892,11 @@ def main(argv=None):
                     help="a checkout whose flash and scan kernels to time "
                          "against this one's (e.g. a git archive of the "
                          "parent)")
+    ap.add_argument("--serve-exported", nargs=2, metavar=("DIR", "DEVICE"),
+                    help=argparse.SUPPRESS)    # the export phase's process
     args = ap.parse_args(argv)
+    if args.serve_exported:
+        return serve_exported(*args.serve_exported)
     t_start = time.perf_counter()
     card, sfu_rate, fmul_rate = phase_device()
     phase_build()
@@ -3671,6 +3973,9 @@ def main(argv=None):
                                           ss.KERNEL: 0}),
         "mamba": (mambafuser_config(), {ss.KERNEL: sum(
             SCAN_LAUNCHES.values()), fa.KERNEL: 0})})
+    # this slice's main path: the serving artifact, exported and served
+    # in a fresh process
+    export = phase_export(card)
     cfg30 = {name: make(seq_len=ref30.seq_len, pred_len=ref30.pred_len)
              for name, make in (("gpt", gpt_transfuser_config),
                                 ("mamba", mambafuser_config))}
@@ -3820,6 +4125,12 @@ def main(argv=None):
                     "launches_per_step"].get(name, 0),
                 "quickstart": quick["launches_per_step"].get(name, 0)}
 
+    def launches_export(name):
+        """Launches a forward of the exported serving artifacts, GPT
+        TransFuser and MambaFuser (export phase)."""
+        return {m: export[m]["launches"].get(name, 0)
+                for m in ("gpt", "mamba")}
+
     def at_30to5(rows, n, p=None):
         """The 30-to-5 rows' sums: per training step (``p`` = DROP_P) or
         serving forward (``p`` = 0) for the flash rows, 8 launches at each
@@ -3870,6 +4181,7 @@ def main(argv=None):
                 "launches_30to5": launches_30to5(name),
                 "launches_rebuild": launches_rebuild(name),
                 "launches_tools_data": launches_tools_data(name),
+                "launches_export": launches_export(name),
                 "max_abs_err": err, "ms": ms, "plain_ms": plain,
                 "bound_ms": bound, "bound_by": by, "library_ms": library,
                 **extra}
@@ -3952,6 +4264,7 @@ def main(argv=None):
             "launches_30to5": launches_30to5(name),
             "launches_rebuild": launches_rebuild(name),
             "launches_tools_data": launches_tools_data(name),
+            "launches_export": launches_export(name),
             **({f"per_{'forward' if name == ss.KERNEL else 'step'}_30to5":
                 at_30to5(k30["scan_fwd" if name == ss.KERNEL
                              else "scan_bwd"], v30["scan_shapes"])}
@@ -3988,6 +4301,7 @@ def main(argv=None):
         "launches_30to5": launches_30to5(ss.KERNEL_SEQ),
         "launches_rebuild": launches_rebuild(ss.KERNEL_SEQ),
         "launches_tools_data": launches_tools_data(ss.KERNEL_SEQ),
+        "launches_export": launches_export(ss.KERNEL_SEQ),
         "max_abs_err": max(r["max_abs_err"] for r in seq_rows),
         **{k: per_forward(seq_main, SCAN_LAUNCHES, k)
            for k in ("ms", "plain_ms", "bound_ms")},
@@ -4021,6 +4335,7 @@ def main(argv=None):
         "launches_30to5": launches_30to5(sr.KERNEL_CHAIN),
         "launches_rebuild": launches_rebuild(sr.KERNEL_CHAIN),
         "launches_tools_data": launches_tools_data(sr.KERNEL_CHAIN),
+        "launches_export": launches_export(sr.KERNEL_CHAIN),
         "max_abs_err": max(r["max_abs_err"] for r in chain_rows),
         **{k: sum(r[k] for r in chain_rows)
            for k in ("ms", "plain_ms", "bound_ms")},

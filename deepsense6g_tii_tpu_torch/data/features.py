@@ -42,7 +42,11 @@ def _mean_std(device, dtype):
 
 def normalize_imagenet(x):
     """uint8-scale NHWC image -> ImageNet-normalised float (channel last)."""
-    mean, std = _mean_std(x.device, x.dtype)
+    import torch
+    # a trace (torch.export) makes its own, as ops/resize.py's matrices
+    make = (_mean_std.__wrapped__ if torch.compiler.is_compiling()
+            else _mean_std)
+    mean, std = make(x.device, x.dtype)
     return (x / 255.0 - mean) / std
 
 

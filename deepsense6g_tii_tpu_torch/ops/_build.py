@@ -17,6 +17,11 @@ per kernel name: :func:`launch` adds one where it launches a kernel and
 nowhere else (one for each kernel an entry point launches), so a caller
 can reset the counts, run the model and see which kernels the run went
 through.
+
+Each kernel that the serving path runs is a ``torch.library`` custom op in
+:data:`OP_NAMESPACE` (``torch.ops.deepsense6g``), registered when its module
+is imported, so that ``torch.export`` can trace it and a saved program can
+find it again; the kernel itself is still built at its first launch.
 """
 
 from __future__ import annotations
@@ -48,6 +53,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 CUDA_NVCC = "/usr/local/cuda/bin/nvcc"
 
+# the namespace of the port's custom ops: "deepsense6g" for this package,
+# one of its own for another checkout's copy that a kernel tool loads beside
+# it (tools/timing.py::load_checkout), whose ops would collide with these
+_PACKAGE = __name__.split(".")[0]
+OP_NAMESPACE = ("deepsense6g" if _PACKAGE == "deepsense6g_tii_tpu_torch"
+                else "deepsense6g_" + _PACKAGE.strip("_"))
+
 KERNEL_LAUNCHES: Dict[str, int] = {}
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _FNS: Dict[str, Callable] = {}
@@ -59,6 +71,15 @@ def count_launch(name: str) -> None:
 
 def reset_launch_counts() -> None:
     KERNEL_LAUNCHES.clear()
+
+
+def needs_grad(*tensors) -> bool:
+    """True when autograd records and any of ``tensors`` requires grad: a
+    wrapper then runs its autograd Function (or, on the CPU, the plain
+    version under autograd) instead of its custom op, which has no
+    backward."""
+    import torch
+    return torch.is_grad_enabled() and any(x.requires_grad for x in tensors)
 
 
 def _nvcc() -> str:

@@ -33,7 +33,12 @@ here and in the JAX package.
 
 Dispatch rests on the tensors' device alone: a CPU tensor goes to the plain
 version, a CUDA tensor to the kernel, or the wrapper raises.  Nothing falls
-back.  Importing this module neither builds nor loads a kernel; the first
+back.  The forward is the custom op ``torch.ops.deepsense6g.flash_mha_fwd``
+(:data:`flash_fwd_op`; its CUDA kernel is the launch, its CPU kernel
+:func:`flash_mha_reference`, its fake implementation allocates what the
+launch allocates), the one place that launches the forward kernel, so that
+``torch.export`` traces the serving forward through it.  Importing this
+module registers the op and neither builds nor loads a kernel; the first
 CUDA call does (ops/_build.py).
 """
 
@@ -297,28 +302,63 @@ def _drop_args(dropout_p: float, seed, t: int, block: int):
             padded_length(t, block))
 
 
+def _fwd_cuda(q, k, v, sm_scale, dropout_p, seed, block):
+    """The forward kernel's launch: (O, lse) for a seed already in uint32
+    bits; the CUDA kernel of :data:`flash_fwd_op`."""
+    _check_kernel_inputs(q, k, v)
+    b, h, t, _ = q.shape
+    o = torch.empty_like(q)
+    lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+    _fwd_kernel(q, k, v, o, lse, sm_scale, dropout_p, seed, block)
+    return o, lse
+
+
+def _fwd_kernel(q, k, v, o, lse, sm_scale, dropout_p, seed, block):
+    """One launch of the forward kernel, writing ``o`` and ``lse``."""
+    b, h, t, d = q.shape
+    p = float(dropout_p)
+    _launch("flash_attention_fwd", KERNEL, q.device, q.data_ptr(),
+            k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(), b * h,
+            t, d, int(q.dtype == torch.bfloat16), float(sm_scale),
+            keep_threshold(p), drop_scale(p) if p > 0.0 else 1.0, int(seed),
+            padded_length(t, block))
+
+
+OP_NAME = "flash_mha_fwd"
+flash_fwd_op = torch.library.custom_op(
+    f"{_build.OP_NAMESPACE}::{OP_NAME}", _fwd_cuda, mutates_args=(),
+    device_types="cuda",
+    schema="(Tensor q, Tensor k, Tensor v, float sm_scale, float dropout_p, "
+           "int seed, int block) -> (Tensor, Tensor)")
+
+
+@flash_fwd_op.register_kernel("cpu")
+def _fwd_cpu(q, k, v, sm_scale, dropout_p, seed, block):
+    return flash_mha_reference(q, k, v, sm_scale, dropout_p, seed, block)
+
+
+@flash_fwd_op.register_fake
+def _fwd_fake(q, k, v, sm_scale, dropout_p, seed, block):
+    b, h, t, _ = q.shape
+    return (torch.empty_like(q),
+            q.new_empty((b, h, t), dtype=_compute_dtype(q.dtype)))
+
+
 def flash_mha_fwd(q, k, v, *, sm_scale=None, dropout_p: float = 0.0,
                   seed=None, block: int = DEFAULT_BLOCK):
     """softmax(q kᵀ·sm_scale) v, with attention-probability dropout from
     ``seed`` when ``dropout_p > 0``, and its row lse.
 
     q, k, v: (B, heads, T, head_dim), any T.  Returns (O in the input dtype,
-    lse (B, heads, T) f32).  ``sm_scale`` defaults to head_dim**-0.5."""
+    lse (B, heads, T) f32).  ``sm_scale`` defaults to head_dim**-0.5.
+    Through :data:`flash_fwd_op`, except on CPU tensors that autograd
+    records, which take the plain version under autograd."""
     if sm_scale is None:
         sm_scale = float(q.shape[-1]) ** -0.5
-    p, scale, seed_u32, t_pad = _drop_args(dropout_p, seed, q.shape[2],
-                                           block)
-    if _device_kind(q) == "cpu":
+    p, seed_u32 = float(dropout_p), _seed_bits(dropout_p, seed)
+    if _device_kind(q) == "cpu" and _build.needs_grad(q, k, v):
         return flash_mha_reference(q, k, v, sm_scale, p, seed_u32, block)
-    _check_kernel_inputs(q, k, v)
-    b, h, t, d = q.shape
-    o = torch.empty_like(q)
-    lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
-    _launch("flash_attention_fwd", KERNEL, q.device, q.data_ptr(),
-            k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(), b * h,
-            t, d, int(q.dtype == torch.bfloat16), float(sm_scale),
-            keep_threshold(p), scale, seed_u32, t_pad)
-    return o, lse
+    return flash_fwd_op(q, k, v, float(sm_scale), p, seed_u32, int(block))
 
 
 def bwd_mode(t_pad: int, d: int) -> str:
@@ -400,8 +440,7 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, sm_scale, dropout_p, seed, block):
-        o, lse = flash_mha_fwd(q, k, v, sm_scale=sm_scale,
-                               dropout_p=dropout_p, seed=seed, block=block)
+        o, lse = flash_fwd_op(q, k, v, sm_scale, dropout_p, seed, block)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.args = (sm_scale, dropout_p, seed, block)
         return o
@@ -421,9 +460,15 @@ def flash_mha(q, k, v, *, sm_scale=None, dropout_p: float = 0.0, seed=None,
     """Flash attention: softmax(q kᵀ·sm_scale) v, q/k/v (B, heads, T, D),
     differentiable.  ``dropout_p > 0`` drops attention probabilities by the
     hash stream of ``seed`` (an int32, as the JAX package's ``derive_seed``
-    gives it) and raises ``ValueError`` without one."""
+    gives it) and raises ``ValueError`` without one.  Without an input that
+    requires grad (or under ``torch.no_grad()``) it calls
+    :data:`flash_fwd_op` alone, which ``torch.export`` traces; else
+    :class:`FlashAttention`."""
     if sm_scale is None:
         sm_scale = float(q.shape[-1]) ** -0.5
-    _seed_bits(dropout_p, seed)
-    return FlashAttention.apply(q, k, v, float(sm_scale), float(dropout_p),
-                                int(seed or 0), int(block))
+    _device_kind(q)
+    args = (float(sm_scale), float(dropout_p), _seed_bits(dropout_p, seed),
+            int(block))
+    if not _build.needs_grad(q, k, v):
+        return flash_fwd_op(q, k, v, *args)[0]
+    return FlashAttention.apply(q, k, v, *args)

@@ -42,7 +42,11 @@ def interpolate_bilinear(x: torch.Tensor, scale: int) -> torch.Tensor:
     if scale == 1:
         return x
     n, h, w, c = x.shape
-    mh = _interp_matrix(h, h * scale, x.device, x.dtype)
-    mw = _interp_matrix(w, w * scale, x.device, x.dtype)
+    # a trace (torch.export) makes its own matrices, constants of the traced
+    # program: cached, its tensors would serve later eager calls
+    make = (_interp_matrix.__wrapped__ if torch.compiler.is_compiling()
+            else _interp_matrix)
+    mh = make(h, h * scale, x.device, x.dtype)
+    mw = make(w, w * scale, x.device, x.dtype)
     x = torch.einsum("Hh,nhwc->nHwc", mh, x)
     return torch.einsum("Ww,nhwc->nhWc", mw, x)

@@ -47,8 +47,13 @@ repository.  Dispatch rests on the tensors' device alone: a CPU tensor goes
 to the plain version, a CUDA tensor to the kernel, or the wrapper raises.
 Nothing falls back.  On a CUDA tensor that autograd records,
 :func:`selective_scan_fwd` runs :class:`SelectiveScan`, whose backward is
-the backward kernel.  Importing this module neither builds nor loads a
-kernel; the first CUDA call does (ops/_build.py).
+the backward kernel.  Without autograd, the chunked forward is the custom
+op ``torch.ops.deepsense6g.selective_scan_fwd`` (:data:`scan_fwd_op`; its
+CUDA kernel is :func:`_launch_fwd` without ``h_in``, its CPU kernel
+:func:`selective_scan_reference`, its fake implementation allocates what
+:func:`_fwd_outputs` allocates), which ``torch.export`` traces.  Importing
+this module registers the op and neither builds nor loads a kernel; the
+first CUDA call does (ops/_build.py).
 """
 
 from __future__ import annotations
@@ -58,6 +63,7 @@ import ctypes
 import torch
 
 from . import _build
+from ._build import needs_grad
 
 FWD_LIBRARY = "selective_scan_fwd"
 BWD_LIBRARY = "selective_scan_bwd"
@@ -739,9 +745,32 @@ class SelectiveScan(torch.autograd.Function):
         return (*grads, None, None)
 
 
-def needs_grad(*tensors) -> bool:
-    """True when autograd records and any of ``tensors`` requires grad."""
-    return torch.is_grad_enabled() and any(x.requires_grad for x in tensors)
+def _scan_fwd_cuda(u, dt, A, B, C, reverse):
+    """The CUDA kernel of :data:`scan_fwd_op`: the forward kernel without
+    the chunk-entry states."""
+    return _launch_fwd(u, dt, A, B, C, reverse, False)[:2]
+
+
+OP_NAME = "selective_scan_fwd"
+scan_fwd_op = torch.library.custom_op(
+    f"{_build.OP_NAMESPACE}::{OP_NAME}", _scan_fwd_cuda,
+    mutates_args=(), device_types="cuda",
+    schema="(Tensor u, Tensor dt, Tensor A, Tensor B, Tensor C, "
+           "bool reverse) -> (Tensor, Tensor)")
+
+
+@scan_fwd_op.register_kernel("cpu")
+def _scan_fwd_cpu(u, dt, A, B, C, reverse):
+    y, h_out = selective_scan_reference(u, dt, A, B, C, reverse)
+    return y.contiguous(), h_out
+
+
+@scan_fwd_op.register_fake
+def _scan_fwd_fake(u, dt, A, B, C, reverse):
+    b, L, d = u.shape
+    ct = torch.float64 if u.dtype == torch.float64 else torch.float32
+    return (u.new_empty((b, L, d), dtype=ct),
+            u.new_empty((b, D_STATE, d), dtype=ct))
 
 
 def selective_scan_fwd(u, dt, A, B, C, *, reverse: bool = False,
@@ -751,19 +780,24 @@ def selective_scan_fwd(u, dt, A, B, C, *, reverse: bool = False,
     ``variant="sequential"`` runs the step-by-step kernel (the plain loop
     :func:`selective_scan_sequential_reference` on the CPU), left to right
     only: with ``reverse=True`` it raises ``ValueError``, as the JAX
-    package does.  Differentiable in u, dt, A, B and C on either device."""
+    package does.  Differentiable in u, dt, A, B and C on either device;
+    without an input that requires grad (or under ``torch.no_grad()``) the
+    chunked variant is :data:`scan_fwd_op`."""
     if variant not in VARIANTS:
         raise ValueError(f"selective scan variant must be one of {VARIANTS}, "
                          f"got {variant!r}")
     if reverse and variant != "chunked":
         raise ValueError("reverse scan supports only variant='chunked'")
-    if u.device.type == "cpu":
+    grad = needs_grad(u, dt, A, B, C)
+    if u.device.type == "cpu" and (grad or variant == "sequential"):
         if variant == "sequential":
             return selective_scan_sequential_reference(u, dt, A, B, C)[:2]
         return selective_scan_reference(u, dt, A, B, C, reverse)
-    if needs_grad(u, dt, A, B, C):
+    if grad:
         return SelectiveScan.apply(u, dt, A, B, C, bool(reverse), variant)
     if variant == "sequential":
         return _launch_seq(u, dt, A, B, C, False)[:2]
-    y, h_out, _ = _launch_fwd(u, dt, A, B, C, reverse, False)
-    return y, h_out
+    if u.device.type in ("cpu", "cuda"):
+        return scan_fwd_op(u, dt, A, B, C, bool(reverse))
+    # no kernel serves another device: the launcher's checks refuse it
+    return _launch_fwd(u, dt, A, B, C, reverse, False)[:2]

@@ -12,6 +12,18 @@ model of ``config`` (strictly: every leaf present, no leaf left over):
     pred = Predictor.from_torch("best_model.pth", cfg)         # reference
     idx, conf = pred.predict(image, lidar, radar, gps)  # (B, 3), (B,)
 
+The serving artifact (``serve.py:148-215`` of the JAX package): the
+forward, softmax and top-k traced by ``torch.export`` at a fixed batch with
+the weights inside one ``.pt2`` file, which :class:`ExportedPredictor`
+serves without the checkpoint or the model's code.  The hand-written
+kernels are ``torch.library`` custom ops (``torch.ops.deepsense6g``), so
+the artifact calls them by name; loading it needs them registered, which
+importing this module (or the port's ``ops.flash_attention`` and
+``ops.selective_scan``) does:
+
+    pred.export_artifact("build/serve/gpt_b8.pt2")            # batch 8
+    idx, conf = ExportedPredictor("build/serve/gpt_b8.pt2").predict(...)
+
 Run as a script, it serves a checkpoint, chosen by its suffix (``.pt``,
 ``.msgpack`` or ``.pth``), on synthetic requests and prints one JSON line
 of latency.  The flags and defaults are the JAX serve CLI's: ``--FFM 1
@@ -27,17 +39,26 @@ plain paths, as the JAX CLI does off the TPU:
 from __future__ import annotations
 
 import time
-from typing import Dict, Sequence, Tuple
+from collections import Counter
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.export.graph_signature import InputKind, OutputKind
 
 from .config import GlobalConfig
 from .models.checkpoint_import import load_reference_checkpoint
 from .models.fuser import BeamFuser
 from .models.msgpack import read_flax_msgpack
 from .models.weights import from_jax_variables
+# registered custom ops, which an artifact calls by name
+from .ops import _build, flash_attention, selective_scan
 from .utils.device import resolve_device
+
+# the serving kernels' launch-count names -> their custom ops' names in an
+# exported graph (graph_ops)
+KERNEL_OPS = {m.KERNEL: f"{_build.OP_NAMESPACE}.{m.OP_NAME}.default"
+              for m in (flash_attention, selective_scan)}
 
 
 class Predictor:
@@ -141,6 +162,123 @@ class Predictor:
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    # -- the serving artifact (torch.export) --------------------------------
+
+    def export_program(self, batch_size: Optional[int] = None
+                       ) -> "torch.export.ExportedProgram":
+        """The serving forward (:class:`ServingForward`) traced by
+        ``torch.export`` at a fixed batch (default: the largest bucket),
+        f32 inputs of :meth:`predict`'s shapes on this predictor's device.
+
+        The trace runs under ``torch.no_grad()``: the kernel wrappers then
+        call their custom ops (with grad they would take their autograd
+        Functions, which ``torch.export`` cannot trace), and the model's
+        parameters are left as they are."""
+        b = batch_size or self.buckets[-1]
+        args = tuple(torch.zeros(s, device=self.device)
+                     for s in self._input_shapes(b))
+        with torch.no_grad():
+            return torch.export.export(ServingForward(self.model, self.top_k),
+                                       args, strict=False)
+
+    def export_artifact(self, path: str,
+                        batch_size: Optional[int] = None
+                        ) -> "torch.export.ExportedProgram":
+        """Writes :meth:`export_program` to ``path`` with
+        ``torch.export.save``: one ``.pt2`` file that holds the graph and
+        the weights, which :class:`ExportedPredictor` serves without the
+        checkpoint or the model's code, with the same torch, on the device
+        type it was exported on.  Returns the program."""
+        program = self.export_program(batch_size)
+        torch.export.save(program, path)
+        return program
+
+
+class ServingForward(torch.nn.Module):
+    """The forward that an artifact holds: the model, softmax in f32 and
+    top-k.  Returns the plain tuple (indices, confidences):
+    ``torch.export.save`` cannot write ``torch.return_types.topk``."""
+
+    def __init__(self, model: BeamFuser, top_k: int):
+        super().__init__()
+        self.model, self.top_k = model, top_k
+
+    def forward(self, image, lidar, radar, gps):
+        probs = torch.softmax(self.model(image, lidar, radar, gps).float(),
+                              dim=-1)
+        conf, idx = torch.topk(probs, self.top_k, dim=-1)
+        return idx, conf
+
+
+class ExportedPredictor:
+    """Serves a :meth:`Predictor.export_artifact` file: loads it with
+    ``torch.export.load`` and runs its graph (:meth:`forward`) under
+    ``torch.inference_mode()``, padding ragged requests up to the
+    artifact's fixed batch and returning :meth:`Predictor.predict`'s
+    contract (1-indexed top-k beams, top-1 confidences).  It needs no
+    checkpoint and builds no ``BeamFuser``; the port's custom ops must be
+    registered, which importing this module does (a bare
+    ``torch.export.load`` fails to resolve ``torch.ops.deepsense6g``
+    without them).
+
+    ``device`` (default ``cuda``, which raises without CUDA) must be the
+    device type the artifact was exported on; nothing moves it."""
+
+    def __init__(self, path: str, device="cuda"):
+        self.device = resolve_device(device)
+        self.program = torch.export.load(path)
+        sig = self.program.graph_signature
+        if any(s.kind != OutputKind.USER_OUTPUT for s in sig.output_specs):
+            raise ValueError(f"{path}: the serving graph mutates its state")
+        # the graph's inputs in order: its weights, buffers and constants,
+        # None where a request's tensor goes
+        state = {**self.program.state_dict, **self.program.constants}
+        self._inputs = [None if s.kind == InputKind.USER_INPUT
+                        else state[s.target] for s in sig.input_specs]
+        first = sig.user_inputs[0]
+        spec = next(n.meta["val"] for n in self.program.graph.nodes
+                    if n.op == "placeholder" and n.name == first)
+        if spec.device.type != self.device.type:
+            raise ValueError(f"{path} was exported on {spec.device.type}, "
+                             f"not {self.device.type}: export it again "
+                             f"there")
+        self.batch = int(spec.shape[0])
+
+    def forward(self, image, lidar, radar, gps):
+        """The artifact's graph on a full batch of device tensors:
+        (top-k indices, confidences).  It runs the graph module on the
+        lifted weights itself: ``ExportedProgram.module()`` writes each
+        weight's name as Python, and the 30-to-5 decoder's ``in`` is a
+        keyword."""
+        request = iter((image, lidar, radar, gps))
+        with torch.inference_mode():
+            return tuple(self.program.graph_module(
+                *(next(request) if x is None else x for x in self._inputs)))
+
+    def predict(self, image, lidar, radar, gps
+                ) -> Tuple[np.ndarray, np.ndarray]:
+        n, b = image.shape[0], self.batch
+        if n > b:
+            raise ValueError(
+                f"request batch {n} exceeds the artifact's fixed batch {b}; "
+                "re-export with a larger batch_size or split the request")
+        arrs = []
+        for a in (image, lidar, radar, gps):
+            a = np.asarray(a, dtype=np.float32)
+            if n < b:
+                a = np.pad(a, ((0, b - n),) + ((0, 0),) * (a.ndim - 1))
+            arrs.append(torch.from_numpy(a).to(self.device))
+        idx, conf = self.forward(*arrs)
+        return idx[:n].cpu().numpy() + 1, conf[:n, 0].cpu().numpy()
+
+
+def graph_ops(program) -> Dict[str, int]:
+    """How many nodes of an exported program's graph call each op, by the
+    op's name (``deepsense6g.flash_mha_fwd.default``,
+    ``aten.matmul.default``, ...)."""
+    return dict(Counter(str(n.target) for n in program.graph.nodes
+                        if n.op == "call_function"))
 
 
 def gpt_transfuser_config(**overrides) -> GlobalConfig:

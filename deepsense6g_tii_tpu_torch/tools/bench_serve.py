@@ -13,15 +13,20 @@ sync at the end.
 
 ``--device`` defaults to ``cuda`` (bf16 through the hand-written kernels)
 and raises without it; ``--device cpu`` serves in f32 on the plain paths,
-as the JAX tool does off the TPU.  ``--exported`` (the serving artifact)
-waits for the port's export (ROADMAP.md Queue 1 item 8) and raises.  The
-last line is one JSON object, with the card's name and power limit.
+as the JAX tool does off the TPU.  ``--exported`` adds the serving
+artifact's leg at the largest bucket (``Predictor.export_artifact`` into
+``build/serve/``, loaded back by ``ExportedPredictor`` in this process):
+export and load seconds, the file's size, its top-1 and confidences
+against the live ``Predictor`` on the same inputs, its p50/p90 and its
+pipelined samples/s.  The last line is one JSON object, with the card's
+name and power limit.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import time
 from typing import Sequence
@@ -31,18 +36,21 @@ import torch
 
 from ..config import GlobalConfig
 from ..models.fuser import BeamFuser
-from ..serve import Predictor, serving_config
+from ..ops._build import build_dir
+from ..serve import ExportedPredictor, Predictor, serving_config
 from ..utils.device import resolve_device
 from . import timing
 
 ITERS = 30              # latency requests a bucket
 PIPELINED_CALLS = 40
+ARTIFACT_DIR = build_dir("serve")
 
 
 def run(cfg: GlobalConfig, batches: Sequence[int], iters: int = ITERS,
-        device="cuda") -> dict:
+        device="cuda", exported: bool = False) -> dict:
     """Latency per bucket and the pipelined throughput of ``cfg``'s model
-    (seed-0 weights) served on ``device``; returns the JSON line's
+    (seed-0 weights) served on ``device``, and with ``exported`` the
+    artifact's leg (:func:`exported_leg`); returns the JSON line's
     object."""
     dev = resolve_device(device)
     on_card = dev.type == "cuda"
@@ -69,18 +77,65 @@ def run(cfg: GlobalConfig, batches: Sequence[int], iters: int = ITERS,
             *(np.zeros(s, np.float32) for s in shapes[1:]))
     pred.predict(*host)                                  # warm
     on_dev = [torch.from_numpy(a).to(dev) for a in host]
-    with torch.inference_mode():
-        pred._sync()
-        t0 = time.perf_counter()
-        for _ in range(PIPELINED_CALLS):
-            pred.model(*on_dev)
-        pred._sync()
-        dt = time.perf_counter() - t0
+    dt = pipelined(pred.model, on_dev, pred._sync)
     out["pipelined"] = {"batch": b, "calls": PIPELINED_CALLS,
                         "samples_per_sec": b * PIPELINED_CALLS / dt,
                         "ms_per_call": 1e3 * dt / PIPELINED_CALLS}
     print(f"pipelined batch {b}: {out['pipelined']['samples_per_sec']:.2f} "
           f"samples/s", flush=True)
+    if exported:
+        out["exported"] = exported_leg(pred, host, iters, out["arch"])
+    return out
+
+
+def pipelined(fn, args, sync) -> float:
+    """Seconds for PIPELINED_CALLS calls of ``fn(*args)`` queued on the
+    device, one sync at the end."""
+    with torch.inference_mode():
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(PIPELINED_CALLS):
+            fn(*args)
+        sync()
+    return time.perf_counter() - t0
+
+
+def exported_leg(pred: Predictor, host, iters: int, arch: str) -> dict:
+    """The serving artifact at the batch of the host arrays ``host``:
+    exported and saved under ARTIFACT_DIR, loaded back, held to the live
+    predictor on ``host`` (top-1 equal, largest confidence error), then its
+    p50/p90 of one ``ExportedPredictor.predict`` and its pipelined
+    samples/s on inputs already on the device."""
+    b = host[0].shape[0]
+    ARTIFACT_DIR.mkdir(parents=True, exist_ok=True)
+    path = str(ARTIFACT_DIR / f"{arch}_b{b}.pt2")
+    t0 = time.perf_counter()
+    pred.export_artifact(path, batch_size=b)
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ep = ExportedPredictor(path, device=pred.device)
+    load_s = time.perf_counter() - t0
+    beams, conf = pred.predict(*host)
+    beams_x, conf_x = ep.predict(*host)
+    ep.predict(*host)                                     # warm
+    times = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        ep.predict(*host)          # returns host arrays: synced
+        times.append((time.perf_counter() - t0) * 1e3)
+    on_dev = [torch.from_numpy(a).to(pred.device) for a in host]
+    dt = pipelined(ep.forward, on_dev, pred._sync)
+    out = {"path": path, "batch": b,
+           "artifact_mb": os.path.getsize(path) / 1e6,
+           "export_s": export_s, "load_s": load_s,
+           "top1_match": bool(np.array_equal(beams[:, 0], beams_x[:, 0])),
+           "conf_max_abs_err": float(np.abs(conf - conf_x).max()),
+           "p50_ms": float(np.percentile(times, 50)),
+           "p90_ms": float(np.percentile(times, 90)),
+           "samples_per_sec": b * PIPELINED_CALLS / dt}
+    print(f"exported batch {b}: top1_match={out['top1_match']} conf_err="
+          f"{out['conf_max_abs_err']:.2e} p50 {out['p50_ms']:.3f} ms "
+          f"pipelined {out['samples_per_sec']:.2f} samples/s", flush=True)
     return out
 
 
@@ -90,15 +145,10 @@ def main(argv=None) -> int:
     p.add_argument("--batches", default="1,8,16")
     p.add_argument("--iters", type=int, default=ITERS)
     p.add_argument("--exported", action="store_true",
-                   help="the exported serving artifact: not in the port yet "
-                        "(raises)")
+                   help="also the serving artifact (torch.export) at the "
+                        "largest bucket, against the live predictor")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     a = p.parse_args(argv)
-    if a.exported:
-        raise NotImplementedError(
-            "--exported: the serving artifact (torch.export with the kernels "
-            "as torch.library custom ops) is ROADMAP.md Queue 1 item 8, not "
-            "in the PyTorch port yet")
     dev = resolve_device(a.device)
     on_card = dev.type == "cuda"
     fused = int(a.arch == "mamba")
@@ -108,7 +158,8 @@ def main(argv=None) -> int:
     card = timing.card() if on_card else None
     if card:
         print(f"card: {card}", file=sys.stderr)
-    out = run(cfg, [int(x) for x in a.batches.split(",")], a.iters, dev)
+    out = run(cfg, [int(x) for x in a.batches.split(",")], a.iters, dev,
+              a.exported)
     print(json.dumps({**out, "card": card}))
     return 0
 

@@ -147,11 +147,6 @@ def test_bench_serve_run(arch):
     json.dumps(out)
 
 
-def test_bench_serve_exported_raises():
-    with pytest.raises(NotImplementedError, match="item 8"):
-        bench_serve.main(["--exported", "--device", "cpu"])
-
-
 # -- profile_step -------------------------------------------------------------
 
 @pytest.mark.parametrize("arch", ["gpt", "mamba"])
