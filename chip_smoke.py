@@ -224,6 +224,45 @@ Phases, in order; any failure exits non-zero and prints no result:
             through its main on the card: every artifact, one beam_pred.csv
             row per test sample, 11 scan forwards and backwards a step.
 
+16. dp      data parallelism: serving, the train step and the train CLI over
+            several devices.  With at least 2 cards the mesh is the cards
+            and the ranks run on NCCL, one card each; with one, two
+            replicas share cuda:0 and two ranks share it on gloo (NCCL
+            refuses two ranks on one device); the phase prints which.
+            dp serve: Predictor(use_mesh=...) on both full-width models
+            (bf16, seed-0 weights), a request of 8 rows and a ragged one
+            of 3: 67 scan (32 flash) launches a replica a forward; top-3
+            and confidences against one device on each replica's rows
+            (the same shapes: bit for bit) and against one device at batch
+            8 (within DP_ONE_DEVICE_ATOL); p50/p90 of both at batch 8,
+            bench_serve.ITERS requests each.  dp train: this script with
+            --dp-train as the
+            ranks of a process group and as a one-process reference under
+            a one-rank NCCL group, all started together: the full-width
+            MambaFuser in bf16, global batch 8, 3 steps, every parameter,
+            buffer and EMA tensor bit-equal across the ranks after every
+            step (hashes), 67 scan forwards and 67 backwards a rank a
+            step; in f32 at one MambaBlock a stage, the ranks' step
+            against the reference's on the whole batch, and with the last
+            row invalid against the reference's on the first 7 rows:
+            loss, gradients, BatchNorm statistics and the share of
+            updated parameters that moved apart, within DP_SHIFT_FACTOR
+            times the reference's own shift (the largest of the scan
+            kernel's against the plain scan and of its step against itself
+            on the rows in DP_ORDERS; never below DP_FLOOR), every
+            reading printed before any is held to its bound.  dp cli:
+            python -m torch.distributed.run --standalone --nproc_per_node
+            <cards> running the train CLI's main (--multihost 1; this
+            script with --dp-cli counts each step's launches) on a demo
+            tree under build/dp: the GPT
+            TransFuser at --n_layer 2 one epoch, then --Test 1 in the same
+            launch (main again, a second process group): one
+            logdir, written by rank 0 alone, the DBA equal on every rank,
+            8 flash forwards and 8 merged backwards a rank a step, the
+            test CSVs.  Each kernel's row of the kernels line gives its
+            launches on these legs (launches_dp).  --dp-only runs the
+            device, build and dp phases alone (a call with several cards).
+
 With --parent PATH, after the last phase, the flash forward, merged
 backward, split backward and each split kernel alone of the checkout at
 PATH are timed against this one's, per GPT training step, and its scan
@@ -245,6 +284,7 @@ import sys
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+SCRIPT = os.path.abspath(__file__)      # what the dp phase's processes run
 if os.path.isdir(os.path.join(REPO, "deepsense6g_tii_tpu_torch")):
     # the trace helpers (tools/trace.py); without the package,
     # phase_device fails
@@ -429,6 +469,31 @@ CAR_BOX = ((-14.0, -10.0), (-7.0, -5.0), (-1.5, 0.0))
 # the quickstart's debug geometry (n_layer 1): scan launches a train step,
 # each direction of 4 stages and TimeMamba's 3
 DEBUG_SCAN_LAUNCHES = 2 * 4 + 3
+# the dp phase: the global batch of every leg, the bf16 leg's steps, the
+# time limit of its processes (seconds).  The f32 legs against one
+# process's step: each gap within DP_SHIFT_FACTOR times that run's own
+# shift, the largest of the scan kernel's against the plain scan and the
+# step's against itself on its rows in DP_ORDERS (BatchNorm's and the
+# loss's sums taken in another order, as the ranks' are: the random-weight
+# model turns that into 0.4-1.1% of the gradient's norm on the card;
+# sound runs read 0.19-1.2 times the largest, PERF.md), and never held
+# below DP_FLOOR, the train phases' limits on kernel against plain.  AdamW's
+# first step moves an element by about lr·sign(g), whatever the
+# gradient's size, so the updated parameters are held by the share of
+# elements more than 1% of lr apart (at most 1% of them in
+# tests/test_torch_train.py): the elements whose gradient's sign differs.
+# Serving over the mesh: against one device on each replica's rows (the
+# same shapes and kernels) top-k and confidences bit for bit; against one
+# device at batch 8 (other shapes, so other bf16 roundings) confidences
+# within DP_ONE_DEVICE_ATOL, 2.5x the largest reading (3.9e-4 on one
+# card, 1.5e-4 on four, PERF.md: about one bf16 rounding of a logit), and
+# beams equal but where the reference's probabilities of the two lie within it
+DP_BATCH, DP_STEPS, DP_TIMEOUT = 8, 3, 600
+DP_SHIFT_FACTOR = 3.0
+DP_ORDERS = ("reversed", "rolled")
+DP_FLOOR = {"loss_rel": TRAIN_LOSS_RTOL, "grad_global_rel": TRAIN_GRAD_RTOL,
+            "stats_worst": TRAIN_STATS_RTOL, "params_share": 0.01}
+DP_ONE_DEVICE_ATOL = 1e-3
 
 
 def fail(msg):
@@ -3885,6 +3950,554 @@ def seq_states_vs_parent(parent):
     return out
 
 
+# -- the dp phase: data parallelism ---------------------------------------------
+
+class Children:
+    """Processes this script starts, each writing to its own log under
+    ``folder``; :meth:`wait` fails the run, after killing them all, when
+    one exits non-zero or ``timeout`` seconds pass."""
+
+    def __init__(self, cmds, folder, name, env=None, cwd=REPO,
+                 timeout=DP_TIMEOUT):
+        self.name, self.logs, self.procs = name, [], []
+        for i, (cmd, extra) in enumerate(zip(cmds, env or [{}] * len(cmds))):
+            log = os.path.join(folder, f"{name}{i}.log")
+            with open(log, "w") as f:
+                self.procs.append(subprocess.Popen(
+                    cmd, cwd=cwd, stdout=f, stderr=subprocess.STDOUT,
+                    env={**os.environ, **extra}, start_new_session=True))
+            self.logs.append(log)
+        self.deadline = time.perf_counter() + timeout
+
+    def kill(self):
+        import signal
+        for p in self.procs:
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.wait()
+
+    def wait(self):
+        try:
+            while any(p.poll() is None for p in self.procs):
+                if (any(p.poll() not in (None, 0) for p in self.procs)
+                        or time.perf_counter() > self.deadline):
+                    break
+                time.sleep(0.2)
+        finally:
+            self.kill()
+        for p, log in zip(self.procs, self.logs):
+            with open(log) as f:
+                tail = f.read()[-3000:]
+            check(p.returncode == 0, f"dp {self.name}: a process exited "
+                  f"{p.returncode}:\n{tail}")
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def state_hash(model, ema):
+    """sha256 over the bytes of every parameter, buffer and EMA tensor, in
+    name order."""
+    import hashlib
+    import torch
+    h = hashlib.sha256()
+    tensors = {**model.state_dict(), **{f"ema.{k}": v for k, v in ema.items()}}
+    for name in sorted(tensors):
+        h.update(name.encode())
+        h.update(tensors[name].detach().contiguous().reshape(-1).view(
+            torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def dp_train_child(folder, rank, world, port, backend):
+    """A process of the dp phase's train legs (``--dp-train``): rank
+    ``rank`` of ``world`` in a ``backend`` group, or with world 1 the
+    reference, one process under a one-rank NCCL group.  Ranks run the
+    full-width bf16 leg (DP_STEPS steps, the state's hash after each) and
+    the f32 legs on their rows of the global batch; the reference runs the
+    f32 legs on the whole batch through the scan kernel and the plain scan.
+    Rank 0 and the reference save each f32 step's loss, gradients, new
+    BatchNorm statistics and parameters for the phase to compare."""
+    import numpy as np
+    import torch
+    from deepsense6g_tii_tpu_torch.models.fuser import BeamFuser
+    from deepsense6g_tii_tpu_torch.ops import _build
+    from deepsense6g_tii_tpu_torch.parallel import distributed
+    from deepsense6g_tii_tpu_torch.parallel.mesh import make_mesh
+    from deepsense6g_tii_tpu_torch.serve import mambafuser_config
+    from deepsense6g_tii_tpu_torch.train.state import create_train_state
+    from deepsense6g_tii_tpu_torch.train.steps import make_train_step
+    from deepsense6g_tii_tpu_torch.utils.synth import make_synth_batch
+
+    rank, world = int(rank), int(world)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    distributed.initialize(f"127.0.0.1:{port}", world, rank, require=True,
+                           backend=backend)
+    mesh = make_mesh()
+    role = "ref" if world == 1 else f"rank{rank}"
+    out = {"role": role, "device": str(mesh.device),
+           "backend": torch.distributed.get_backend(), "world": world}
+
+    def local(batch):
+        rows = mesh.rows(len(batch["image"]))
+        return {k: torch.from_numpy(v[rows]).to(mesh.device)
+                for k, v in batch.items()}
+
+    def run(cfg, batch, steps, save=None):
+        model = BeamFuser(cfg, device=mesh.device,
+                          generator=torch.Generator().manual_seed(0))
+        state = create_train_state(model, mesh=mesh)
+        step = make_train_step(model, cfg, state, use_ema=True,
+                               device=mesh.device)
+        rec = []
+        for _ in range(steps):
+            _build.reset_launch_counts()
+            loss = step(batch, TRAIN_LR)["loss"].item()
+            rec.append({"loss": loss,
+                        "launches": dict(_build.KERNEL_LAUNCHES),
+                        "hash": state_hash(model, state.ema)})
+        if save is not None:
+            torch.save({"loss": loss,
+                        "grads": {k: p.grad.detach().cpu()
+                                  for k, p in model.named_parameters()},
+                        "stats": {k: b.detach().cpu()
+                                  for k, b in model.named_buffers()},
+                        "params": {k: p.detach().cpu()
+                                   for k, p in model.named_parameters()}},
+                       save)
+        del step, state, model
+        torch.cuda.empty_cache()
+        return rec
+
+    if world > 1:
+        cfg = mambafuser_config()
+        out["bf16"] = run(cfg, local(make_synth_batch(cfg, DP_BATCH, seed=1)),
+                          DP_STEPS)
+    # the f32 legs' MambaFuser: one MambaBlock a stage (well conditioned in
+    # f32, ROADMAP.md Queue 3), dropout 0 (each rank draws its own)
+    cfg = mambafuser_config(compute_dtype="float32", n_layer=1,
+                            embd_pdrop=0.0, attn_pdrop=0.0, resid_pdrop=0.0)
+    batch = make_synth_batch(cfg, DP_BATCH, seed=2)
+    # the last row of the global batch invalid: the step of the first
+    # DP_BATCH - 1 rows
+    masked = {**batch, "valid": np.asarray([1.0] * (DP_BATCH - 1) + [0.0],
+                                           np.float32)}
+    first = {k: v[:DP_BATCH - 1] for k, v in batch.items()}
+    legs = ({"f32": batch, "invalid": masked} if world > 1 else
+            {"f32": batch, "invalid": first})
+    for leg, b in legs.items():
+        # the reference also steps through the plain scan, and through the
+        # scan on its rows in DP_ORDERS (BatchNorm's and the loss's sums
+        # taken in other orders, as the ranks' are)
+        for path in (("scan",) if world > 1 else
+                     ("scan", "plain") + DP_ORDERS):
+            c = cfg.replace(use_pallas_scan=path != "plain")
+            save = (os.path.join(folder, f"{role}_{leg}_{path}.pt")
+                    if rank == 0 else None)
+            if world > 1:
+                rows = local(b)
+            else:
+                n = len(b["image"])
+                order = {"reversed": np.arange(n)[::-1],
+                         "rolled": np.roll(np.arange(n), n // 2)}.get(
+                             path, np.arange(n))
+                rows = {k: torch.from_numpy(v[order]).to(mesh.device)
+                        for k, v in b.items()}
+            out[f"{leg}_{path}"] = run(c, rows, 1, save)
+    distributed.barrier("dp-train")
+    with open(os.path.join(folder, f"{role}.json"), "w") as f:
+        json.dump(out, f)
+    distributed.shutdown()
+    return 0
+
+
+def dp_cli_child(folder, test_dir, argv, test_argv):
+    """A rank of the dp phase's train CLI (``--dp-cli``, under
+    torch.distributed.run): cli.train's main on ``argv`` in ``folder``
+    (every train step's launches counted, every epoch's train and
+    validation DBA kept, written to ``folder``/rank<RANK>.json), then
+    main on ``test_argv`` with --load_model_path of the run's
+    best_model in ``test_dir``, where the test CSVs land.  One launch for
+    both: the first main leaves the process group up (its shutdown is held
+    back) and the second joins it as it stands, since a group set up again
+    on the launcher's store can hang (seen with 4 gloo ranks)."""
+    from deepsense6g_tii_tpu_torch.cli import train as cli
+    from deepsense6g_tii_tpu_torch.parallel import distributed
+    from deepsense6g_tii_tpu_torch.train import engine
+
+    counts, dba = [], {"train": [], "val": []}
+    real = {"train": engine.Engine.train, "val": engine.Engine.validate}
+
+    def keeping(kind):
+        def call(self, loader):
+            d = real[kind](self, loader)
+            dba[kind].append(d)
+            return d
+        return call
+
+    engine.Engine.train, engine.Engine.validate = (keeping("train"),
+                                                   keeping("val"))
+    shutdown, distributed.shutdown = distributed.shutdown, lambda: None
+    try:
+        with counted_train_steps(counts):
+            check(cli.main(argv) == 0, "dp cli: main did not return 0")
+    finally:
+        engine.Engine.train, engine.Engine.validate = (real["train"],
+                                                       real["val"])
+        distributed.shutdown = shutdown
+    with open(os.path.join(folder, f"rank{os.environ['RANK']}.json"),
+              "w") as f:
+        json.dump({"launches": counts, "dba": dba}, f)
+    (run,) = os.listdir(os.path.join(folder, "log"))
+    os.chdir(test_dir)
+    return cli.main(test_argv + ["--load_model_path", os.path.join(
+        folder, "log", run, "best_model")])
+
+
+def replica_reference(pred, model, arrays):
+    """``pred``'s (a mesh Predictor's) answer to a request as ``model``
+    gives it on one device, one replica's rows of the padded request at a
+    time (the shapes each replica ran), through predict's softmax and
+    top-k: (1-indexed top-k, confidences)."""
+    import numpy as np
+    import torch
+    n, b = len(arrays[0]), pred._bucket(len(arrays[0]))
+    per = b // pred.n_devices
+    padded = [np.pad(np.asarray(a, np.float32),
+                     ((0, b - n),) + ((0, 0),) * (a.ndim - 1))
+              for a in arrays]
+    with torch.inference_mode():
+        logits = torch.cat([model(*(
+            torch.from_numpy(a[i * per:(i + 1) * per]).to(pred.device)
+            for a in padded)) for i in range(pred.n_devices)])
+        conf, idx = torch.topk(torch.softmax(logits.float(), -1),
+                               pred.top_k, dim=-1)
+    return idx[:n].cpu().numpy() + 1, conf[:n, 0].cpu().numpy()
+
+
+def beams_agree(idx, want_probs, label):
+    """1-indexed top-k ``idx`` against probabilities ``want_probs``: each
+    beam equal to the reference's at its rank, or the reference's
+    probabilities of the two within DP_ONE_DEVICE_ATOL (a near-tie ordered
+    otherwise).  Returns the rows that differ."""
+    import numpy as np
+    k = idx.shape[1]
+    want = np.argsort(-want_probs, axis=-1, kind="stable")[:, :k] + 1
+    differ = 0
+    for got_row, want_row, p in zip(idx, want, want_probs):
+        if not np.array_equal(got_row, want_row):
+            differ += 1
+            check(np.abs(p[got_row - 1] - p[want_row - 1]).max()
+                  <= DP_ONE_DEVICE_ATOL, f"dp serve {label}: top-{k} "
+                  f"{got_row} against {want_row} (probabilities "
+                  f"{p[got_row - 1]}, {p[want_row - 1]})")
+    return differ
+
+
+def dp_serve(card, mesh):
+    """Predictor(use_mesh=mesh) on both full-width models (bf16, seed-0
+    weights): a request of DP_BATCH rows (DP_BATCH / replicas a replica)
+    and a ragged one of 3."""
+    import numpy as np
+    import torch
+    from deepsense6g_tii_tpu_torch.models.fuser import BeamFuser
+    from deepsense6g_tii_tpu_torch.ops import _build
+    from deepsense6g_tii_tpu_torch.ops import flash_attention as fa
+    from deepsense6g_tii_tpu_torch.ops import selective_scan as ss
+    from deepsense6g_tii_tpu_torch.serve import (Predictor,
+                                                 gpt_transfuser_config,
+                                                 mambafuser_config)
+    from deepsense6g_tii_tpu_torch.tools import bench_serve
+    from deepsense6g_tii_tpu_torch.utils.synth import make_synth_batch
+
+    def sync():
+        for d in set(mesh.devices):
+            torch.cuda.synchronize(d)
+
+    n_rep = len(mesh.devices)
+    out = {}
+    for name, cfg, per_forward in (
+            ("mamba", mambafuser_config(), {ss.KERNEL: sum(
+                SCAN_LAUNCHES.values())}),
+            ("gpt", gpt_transfuser_config(), {fa.KERNEL: 4 * N_LAYER})):
+        model = BeamFuser(cfg, device=mesh.device,
+                          generator=torch.Generator().manual_seed(0))
+        dp = Predictor(model, cfg, batch_buckets=(1, DP_BATCH // n_rep),
+                       device=mesh.device, use_mesh=mesh)
+        one = Predictor(model, cfg, batch_buckets=(1, DP_BATCH),
+                        device=mesh.device)
+        b = make_synth_batch(cfg, DP_BATCH, seed=3, with_labels=False)
+        x = [b[k] for k in ("image", "lidar", "radar", "gps")]
+        dp.predict(*x)                                          # warm
+        sync()
+        _build.reset_launch_counts()
+        idx, conf = dp.predict(*x)
+        sync()
+        launches = dict(_build.KERNEL_LAUNCHES)
+        check(launches == {k: v * n_rep for k, v in per_forward.items()},
+              f"dp serve {name}: launches {launches}, expected "
+              f"{per_forward} on each of {n_rep} replicas")
+        leg = {"replicas": n_rep, "launches_per_replica": {
+            k: v // n_rep for k, v in launches.items()}}
+        for label, req in (("b8", x), ("ragged3", [a[:3] for a in x])):
+            got_idx, got_conf = (idx, conf) if label == "b8" else (
+                dp.predict(*req))
+            check(got_idx.shape == (len(req[0]), 3) and np.isfinite(
+                got_conf).all(), f"dp serve {name} {label}: shapes "
+                f"{got_idx.shape}")
+            want_idx, want_conf = replica_reference(dp, model, req)
+            err = float(np.abs(got_conf - want_conf).max())
+            check(np.array_equal(got_idx, want_idx) and np.array_equal(
+                got_conf, want_conf), f"dp serve {name} {label}: top-3 or "
+                f"confidences ({err:.3g} off) not bit-equal to one "
+                f"device's on the replicas' rows")
+            leg[label] = {"rows": len(req[0]), "bucket": dp._bucket(len(
+                req[0])), "conf_err_vs_replica_rows": err}
+        # one device at batch 8: the Predictor a user would run without the
+        # mesh
+        with torch.inference_mode():
+            p8 = torch.softmax(one.model(*(torch.from_numpy(a).to(
+                one.device) for a in x)).float(), -1).cpu().numpy()
+        err8 = float(np.abs(conf - p8.max(-1)).max())
+        check(err8 <= DP_ONE_DEVICE_ATOL, f"dp serve {name}: confidences "
+              f"{err8:.3g} from one device's at batch {DP_BATCH}")
+        leg["b8"].update(conf_err_vs_one_device=err8,
+                         differ_vs_one_device=beams_agree(
+                             idx, p8, f"{name} (one device)"))
+        # latency at batch 8 as tools/bench_serve.py takes it, the mesh's
+        # and one device's in turn
+        for label, pred in (("dp", dp), ("one_device", one)):
+            r = pred.latency_benchmark(batch=DP_BATCH,
+                                       iters=bench_serve.ITERS)
+            leg[f"{label}_p50_ms"], leg[f"{label}_p90_ms"] = (
+                r["p50_ms"], r["p90_ms"])
+        leg["dp_over_one_device_p50"] = (leg["dp_p50_ms"]
+                                         / leg["one_device_p50_ms"])
+        out[name] = leg
+        del dp, one, model
+        torch.cuda.empty_cache()
+    print(f"dp serve on {card}: " + json.dumps(out))
+    return out
+
+
+def dp_gap(a, b):
+    """f32_gaps of two saved f32 steps and the share of their updated
+    parameters' elements more than 1% of lr apart."""
+    gap = f32_gaps(*((s["loss"], s["grads"], s["stats"]) for s in (a, b)))
+    diffs = [(a["params"][k] - v).abs() for k, v in b["params"].items()]
+    gap["params_share"] = (sum(int((d > 0.01 * TRAIN_LR).sum())
+                               for d in diffs)
+                           / sum(d.numel() for d in diffs))
+    return gap
+
+
+def phase_dp(card):
+    """Data parallelism on the card, three legs (ROADMAP.md Queue 1 item
+    7); with at least 2 cards the mesh is the cards and the ranks run on
+    NCCL, one card each; with one, two replicas or two gloo ranks share
+    cuda:0 (NCCL refuses two ranks on one device)."""
+    import shutil
+    import numpy as np
+    import torch
+    from deepsense6g_tii_tpu_torch.ops import flash_attention as fa
+    from deepsense6g_tii_tpu_torch.ops import selective_scan as ss
+    from deepsense6g_tii_tpu_torch.parallel.mesh import Mesh
+    from deepsense6g_tii_tpu_torch.utils.demo_data import make_demo_root
+
+    t_start = time.perf_counter()
+    n_cards = torch.cuda.device_count()
+    base = os.path.join(REPO, "build", "dp")
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(os.path.join(base, "train"))
+    os.makedirs(os.path.join(base, "cli_run"))
+    os.makedirs(os.path.join(base, "cli_test"))
+    world = max(2, n_cards)
+    backend = "nccl" if n_cards >= 2 else "gloo"
+    devices = ([f"{DEVICE}:{i}" for i in range(n_cards)] if n_cards >= 2
+               else [f"{DEVICE}:0"] * 2)
+    print(f"dp on {card}: {n_cards} card(s); serving mesh {devices}; train "
+          f"legs {world} ranks on {backend}"
+          + (" (both on cuda:0)" if n_cards < 2 else "")
+          + "; reference: one process, a one-rank NCCL group; cli: "
+          f"{n_cards} rank(s) under torch.distributed.run on NCCL")
+    root = os.path.join(base, "data")
+    make_demo_root(root, *CLI_SPLITS, seq_len=5, seed=0)
+    n_train = int(0.9 * 2 * (CLI_SPLITS[0] + CLI_SPLITS[1]))
+    torch.cuda.empty_cache()
+
+    # dp train: the ranks and the reference, started together
+    folder = os.path.join(base, "train")
+    port, ref_port = free_port(), free_port()
+    me = SCRIPT
+    train = Children(
+        [[sys.executable, me, "--dp-train", folder, str(r), str(world),
+          str(port), backend] for r in range(world)]
+        + [[sys.executable, me, "--dp-train", folder, "0", "1",
+            str(ref_port), "nccl"]], folder, "train",
+        env=[{"LOCAL_RANK": str(r if n_cards >= 2 else 0)}
+             for r in range(world)] + [{"LOCAL_RANK": "0"}])
+    # dp cli: one epoch of the GPT TransFuser at --n_layer 2, then a test
+    cli_common = ["--data_root", root, "--FFM", "0", "--TFM", "0",
+                  "--n_layer", str(CLI_GPT_LAYERS), "--batch_size",
+                  str(CLI_BATCH), "--augmentation", "0", "--num_workers",
+                  "4", "--multihost", "1"]
+
+    cli_run = os.path.join(base, "cli_run")
+    cli_test_dir = os.path.join(base, "cli_test")
+    children = [train, Children(
+        [[sys.executable, "-m", "torch.distributed.run", "--standalone",
+          "--nproc_per_node", str(n_cards), me, "--dp-cli", cli_run,
+          cli_test_dir, "--", *cli_common, "--epochs", "1", "--",
+          *cli_common, "--Test", "1"]], cli_run, "cli", cwd=cli_run)]
+    times = {}
+    try:
+        # dp serve in this process meanwhile
+        serve_out = dp_serve(card, Mesh(devices))
+        times["serve_s"] = time.perf_counter() - t_start
+        for name, c in zip(("train_s", "cli_s"), children):
+            c.wait()
+            times[name] = time.perf_counter() - t_start
+    finally:
+        for c in children:
+            c.kill()
+    (run,) = os.listdir(os.path.join(cli_run, "log"))
+    logdir = os.path.join(cli_run, "log", run)
+
+    # dp train: the ranks bit-equal, their launches, and the f32 legs
+    # against the reference's step
+    ranks = []
+    for r in range(world):
+        with open(os.path.join(folder, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    with open(os.path.join(folder, "ref.json")) as f:
+        ref = json.load(f)
+    n_scan = sum(SCAN_LAUNCHES.values())
+    for i in range(DP_STEPS):
+        steps = [r["bf16"][i] for r in ranks]
+        check(len({s["hash"] for s in steps}) == 1, f"dp train bf16 step "
+              f"{i}: the ranks' parameters, buffers and EMA differ")
+        check(len({s["loss"] for s in steps}) == 1 and np.isfinite(
+            steps[0]["loss"]), f"dp train bf16 step {i}: losses "
+            f"{[s['loss'] for s in steps]}")
+        for r, s in enumerate(steps):
+            check(s["launches"] == {ss.KERNEL: n_scan, ss.KERNEL_BWD: n_scan},
+                  f"dp train bf16 step {i} rank {r}: launches "
+                  f"{s['launches']}")
+    train_out = {"world": world, "backend": ranks[0]["backend"],
+                 "devices": [r["device"] for r in ranks],
+                 "ref": {"backend": ref["backend"], "device": ref["device"]},
+                 "bf16_losses": [s["loss"] for s in ranks[0]["bf16"]],
+                 "launches_per_rank_step": ranks[0]["bf16"][0]["launches"]}
+    one_block = {ss.KERNEL: 2 * 4 + 3, ss.KERNEL_BWD: 2 * 4 + 3}
+    for leg in ("f32", "invalid"):
+        check(len({r[f"{leg}_scan"][0]["hash"] for r in ranks}) == 1,
+              f"dp train {leg}: the ranks' state differs")
+        for r in ranks + [ref]:
+            check(r[f"{leg}_scan"][0]["launches"] == one_block,
+                  f"dp train {leg} {r['role']}: launches "
+                  f"{r[f'{leg}_scan'][0]['launches']}")
+        check(ref[f"{leg}_plain"][0]["launches"] == {},
+              f"dp train {leg}: the plain scan launched a kernel")
+        saved = {f"{who}_{path}": torch.load(os.path.join(
+            folder, f"{who}_{leg}_{path}.pt"), weights_only=True)
+            for who, path in (("rank0", "scan"), ("ref", "scan"),
+                              ("ref", "plain"))
+            + tuple(("ref", o) for o in DP_ORDERS)}
+        gap = dp_gap(saved["rank0_scan"], saved["ref_scan"])
+        shifts = {"plain_shift": dp_gap(saved["ref_scan"],
+                                        saved["ref_plain"])}
+        for o in DP_ORDERS:
+            shifts[f"{o}_shift"] = dp_gap(saved["ref_scan"], saved[f"ref_{o}"])
+        train_out[leg] = {k: {"gap": gap[k], **{
+            name: sh[k] for name, sh in shifts.items()}, "bound": max(
+                DP_SHIFT_FACTOR * max(sh[k] for sh in shifts.values()),
+                floor)} for k, floor in DP_FLOOR.items()}
+        train_out[leg]["loss"] = gap["loss"]
+    # every reading printed before any is held to its bound
+    print(f"dp train on {card}: " + json.dumps(train_out))
+    for leg in ("f32", "invalid"):
+        for k in DP_FLOOR:
+            r = train_out[leg][k]
+            check(r["gap"] <= r["bound"], f"dp train {leg}: {k} "
+                  f"{r['gap']:.3g} from the one-process step, bound "
+                  f"{r['bound']:.3g} ({r})")
+
+    # dp cli: one logdir, written by rank 0 alone; every rank's DBA equal
+    cli_ranks = []
+    for r in range(n_cards):
+        with open(os.path.join(cli_run, f"rank{r}.json")) as f:
+            cli_ranks.append(json.load(f))
+    per_rank = n_train // n_cards
+    local_batch = CLI_BATCH // n_cards
+    n_steps = -(-per_rank // local_batch)
+    expect = {fa.KERNEL: 4 * CLI_GPT_LAYERS,
+              fa.KERNEL_MERGED: 4 * CLI_GPT_LAYERS}
+    for r, c in enumerate(cli_ranks):
+        check(len(c["launches"]) == n_steps and all(
+            x == expect for x in c["launches"]), f"dp cli rank {r}: "
+            f"launches {c['launches']}, expected {n_steps} steps of {expect}")
+        check(c["dba"] == cli_ranks[0]["dba"] and len(c["dba"]["val"]) == 1,
+              f"dp cli: rank {r}'s DBA {c['dba']} against rank 0's "
+              f"{cli_ranks[0]['dba']}")
+    files = os.listdir(logdir)
+    with open(os.path.join(logdir, "scalars.jsonl")) as f:
+        tags = [json.loads(line)["tag"] for line in f]
+    check(tags.count("DBA_score_train") == 1
+          and sum(f.startswith("events.out") for f in files) == 1
+          and all(f"{s}.pt" in files for s in ("final_model", "best_model",
+                                                "best_optim")),
+          f"dp cli: logdir {files}, {tags.count('DBA_score_train')} train "
+          f"DBA lines")
+    check_test_csvs(cli_test_dir, 2 * CLI_SPLITS[2], "dp cli")
+    with open(os.path.join(logdir, "recent.log")) as f:
+        rec = json.load(f)
+    check(rec["epoch"] == 1 and np.isfinite(rec["train_loss"]).all(),
+          f"dp cli: run record {rec}")
+    cli_out = {"ranks": n_cards, "steps_per_rank": n_steps,
+               "launches_per_rank_step": cli_ranks[0]["launches"][0],
+               "dba": cli_ranks[0]["dba"], "train_loss": rec["train_loss"]}
+    print(f"dp cli on {card}: " + json.dumps(cli_out))
+    seconds = time.perf_counter() - t_start
+    # each leg's end, seconds from the phase's start (the legs overlap)
+    print(f"dp on {card}: {seconds:.1f} s; " + json.dumps(times))
+    shutil.rmtree(folder, ignore_errors=True)     # the saved f32 steps
+    return {"serve": serve_out, "train": train_out, "cli": cli_out,
+            "seconds": seconds}
+
+
+# each phase's seconds, for the summary line: outermost calls only (a
+# phase run inside another counts in that one), repeated calls summed
+PHASE_SECONDS = {}
+_PHASE_DEPTH = [0]
+
+
+def timed_phase(fn):
+    import functools
+
+    @functools.wraps(fn)
+    def call(*args, **kwargs):
+        _PHASE_DEPTH[0] += 1
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            _PHASE_DEPTH[0] -= 1
+            if not _PHASE_DEPTH[0]:
+                name = fn.__name__[len("phase_"):]
+                PHASE_SECONDS[name] = (PHASE_SECONDS.get(name, 0.0)
+                                       + time.perf_counter() - t0)
+    return call
+
+
+for _name in [n for n in globals() if n.startswith("phase_")]:
+    globals()[_name] = timed_phase(globals()[_name])
+
+
 def main(argv=None):
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -3894,12 +4507,30 @@ def main(argv=None):
                          "parent)")
     ap.add_argument("--serve-exported", nargs=2, metavar=("DIR", "DEVICE"),
                     help=argparse.SUPPRESS)    # the export phase's process
+    ap.add_argument("--dp-train", nargs=5, help=argparse.SUPPRESS,
+                    metavar=("DIR", "RANK", "WORLD", "PORT", "BACKEND"))
+    ap.add_argument("--dp-only", action="store_true",
+                    help="only the device, build and dp phases (for a "
+                         "call with several cards)")
+    argv = sys.argv[1:] if argv is None else argv
+    if argv[:1] == ["--dp-cli"]:        # a rank of the dp phase's CLI leg
+        i = argv.index("--")
+        j = argv.index("--", i + 1)
+        return dp_cli_child(argv[1], argv[2], argv[i + 1:j], argv[j + 1:])
     args = ap.parse_args(argv)
     if args.serve_exported:
         return serve_exported(*args.serve_exported)
+    if args.dp_train:
+        return dp_train_child(*args.dp_train)
     t_start = time.perf_counter()
     card, sfu_rate, fmul_rate = phase_device()
     phase_build()
+    if args.dp_only:
+        phase_dp(card)
+        print(f"chip_smoke --dp-only on {card}: "
+              f"{time.perf_counter() - t_start:.1f} s")
+        print_ok()
+        return 0
     flash_rows = phase_flash_kernel(sfu_rate)
     mask_row = phase_mask()
     bwd_rows = phase_flash_bwd(sfu_rate)
@@ -3991,6 +4622,9 @@ def main(argv=None):
     tools = phase_tools(card)
     prep = phase_preprocess(card)
     quick = phase_quickstart(card)
+    # this slice's main paths: serving over a mesh, the train step over a
+    # process group, and the train CLI under torch.distributed.run
+    dp = phase_dp(card)
 
     # Per forward of the serving path at batch 8 in bf16: the flash kernel's
     # 8 launches at each of the four stage shapes (dropout 0); the scan's 16
@@ -4125,6 +4759,18 @@ def main(argv=None):
                     "launches_per_step"].get(name, 0),
                 "quickstart": quick["launches_per_step"].get(name, 0)}
 
+    def launches_dp(name):
+        """Launches a replica a request, or a rank a step, on the dp
+        phase's legs: serving over the mesh (MambaFuser and GPT
+        TransFuser), the bf16 train leg and the train CLI's GPT TransFuser
+        at --n_layer 2 under torch.distributed.run."""
+        return {"serve_mamba": dp["serve"]["mamba"][
+                    "launches_per_replica"].get(name, 0),
+                "serve_gpt": dp["serve"]["gpt"][
+                    "launches_per_replica"].get(name, 0),
+                "train": dp["train"]["launches_per_rank_step"].get(name, 0),
+                "cli": dp["cli"]["launches_per_rank_step"].get(name, 0)}
+
     def launches_export(name):
         """Launches a forward of the exported serving artifacts, GPT
         TransFuser and MambaFuser (export phase)."""
@@ -4182,6 +4828,7 @@ def main(argv=None):
                 "launches_rebuild": launches_rebuild(name),
                 "launches_tools_data": launches_tools_data(name),
                 "launches_export": launches_export(name),
+                "launches_dp": launches_dp(name),
                 "max_abs_err": err, "ms": ms, "plain_ms": plain,
                 "bound_ms": bound, "bound_by": by, "library_ms": library,
                 **extra}
@@ -4265,6 +4912,7 @@ def main(argv=None):
             "launches_rebuild": launches_rebuild(name),
             "launches_tools_data": launches_tools_data(name),
             "launches_export": launches_export(name),
+            "launches_dp": launches_dp(name),
             **({f"per_{'forward' if name == ss.KERNEL else 'step'}_30to5":
                 at_30to5(k30["scan_fwd" if name == ss.KERNEL
                              else "scan_bwd"], v30["scan_shapes"])}
@@ -4302,6 +4950,7 @@ def main(argv=None):
         "launches_rebuild": launches_rebuild(ss.KERNEL_SEQ),
         "launches_tools_data": launches_tools_data(ss.KERNEL_SEQ),
         "launches_export": launches_export(ss.KERNEL_SEQ),
+        "launches_dp": launches_dp(ss.KERNEL_SEQ),
         "max_abs_err": max(r["max_abs_err"] for r in seq_rows),
         **{k: per_forward(seq_main, SCAN_LAUNCHES, k)
            for k in ("ms", "plain_ms", "bound_ms")},
@@ -4336,6 +4985,7 @@ def main(argv=None):
         "launches_rebuild": launches_rebuild(sr.KERNEL_CHAIN),
         "launches_tools_data": launches_tools_data(sr.KERNEL_CHAIN),
         "launches_export": launches_export(sr.KERNEL_CHAIN),
+        "launches_dp": launches_dp(sr.KERNEL_CHAIN),
         "max_abs_err": max(r["max_abs_err"] for r in chain_rows),
         **{k: sum(r[k] for r in chain_rows)
            for k in ("ms", "plain_ms", "bound_ms")},
@@ -4343,14 +4993,19 @@ def main(argv=None):
                      >= sum(r["ops_ms"] for r in chain_rows)
                      else "operations"),
         "library_ms": None})
-    print(f"chip_smoke on {card}: {time.perf_counter() - t_start:.1f} s "
-          f"(tools {tools['seconds']:.1f} s, preprocess "
-          f"{prep['seconds']:.1f} s, quickstart {quick['seconds']:.1f} s)")
+    print(f"chip_smoke on {card}: {time.perf_counter() - t_start:.1f} s; "
+          "seconds a phase: " + json.dumps(
+              {k: round(v, 1) for k, v in PHASE_SECONDS.items()}))
     print(json.dumps({"kernels": kernels}))
+    print_ok()
+    return 0
+
+
+def print_ok():
+    import torch
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
-    return 0
 
 
 if __name__ == "__main__":

@@ -19,8 +19,24 @@ memmaps under ``DIR/train`` and ``DIR/val`` (data/cache.py; a later run
 finds them and builds nothing) and trains from them; ``--Test`` reads the
 raw tree, as in the JAX CLI.
 
-``--multihost`` (a later slice) raises ``NotImplementedError`` naming its
-ROADMAP.md item.  So do the TPU knobs the port does not take:
+``--multihost 1`` trains data-parallel over a process group, one process
+per GPU, as ``python -m torch.distributed.run`` starts them (JAX
+``cli/train.py:202-214,247-252,296-345``):
+
+    python -m torch.distributed.run --nproc_per_node N \
+        -m deepsense6g_tii_tpu_torch.cli.train --multihost 1 \
+        --data_root ROOT --batch_size 8 ...
+
+Each rank holds ``cuda:LOCAL_RANK`` and ``--batch_size / N`` rows of
+every step (``--batch_size`` stays the global batch and must divide by N)
+from its shard of the training set; validation and test run the full
+split on every rank; rank 0's logdir is every rank's, and only rank 0
+writes it.  Without a launcher (no ``RANK``, ``WORLD_SIZE``,
+``MASTER_ADDR``, ``MASTER_PORT``, nor the JAX package's
+``DEEPSENSE_COORDINATOR``, ``DEEPSENSE_NUM_PROCESSES``,
+``DEEPSENSE_PROCESS_ID``) it raises.
+
+The TPU knobs the port does not take raise ``NotImplementedError``:
 ``--merge_lidar_radar``, ``--padded_token_stream``, ``--flatten_accum``,
 ``--opt_mu_dtype bfloat16`` and ``--flash_dropout_impl hw``.  ``--remat``
 is accepted and ignored.
@@ -115,7 +131,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--padded_token_stream", type=int, default=0,
                    help="a TPU lowering knob (raises)")
     p.add_argument("--multihost", type=int, default=0,
-                   help="multi-GPU training (not in the port yet: raises)")
+                   help="data-parallel training over the process group of "
+                        "a launcher such as torch.distributed.run")
     p.add_argument("--load_torch_checkpoint", type=str, default=None,
                    help="import a reference .pth into the model")
     return p
@@ -134,9 +151,6 @@ def mangle_logdir(args) -> str:
     return logdir
 
 
-_LATER = (
-    ("multihost", bool, "multi-GPU training (ROADMAP.md Queue 1 item 7)"),
-)
 _TPU_KNOBS = (
     ("merge_lidar_radar", bool),
     ("padded_token_stream", bool),
@@ -148,10 +162,6 @@ _TPU_KNOBS = (
 
 def check_args(args) -> None:
     """Raises NotImplementedError for the flags the port does not take."""
-    for flag, given, what in _LATER:
-        if given(getattr(args, flag)):
-            raise NotImplementedError(
-                f"--{flag}: {what} is not in the PyTorch port yet")
     for flag, given in _TPU_KNOBS:
         if given(getattr(args, flag)):
             raise NotImplementedError(
@@ -208,18 +218,43 @@ def _geometry_overrides(args):
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     check_args(args)
+    if not args.multihost:
+        return run(args)
+    from ..parallel import distributed
+    distributed.initialize(require=True)    # explicit: no silent no-op
+    print("distributed:", distributed.process_info())
+    try:
+        code = run(args)
+        distributed.barrier("done")
+        return code
+    finally:
+        distributed.shutdown()
 
+
+def run(args) -> int:
+    """The CLI's work on parsed ``args``, in a process group already
+    joined when ``--multihost``."""
     import torch
 
     from ..data.dataset import BeamDataset, build_train_val_sets
     from ..data.loader import DataLoader
     from ..models.fuser import BeamFuser
+    from ..parallel import distributed
+    from ..parallel.mesh import make_mesh
     from ..train import checkpoints as ckpt
     from ..train.engine import Engine, TrainOptions
     from ..utils.device import resolve_device
 
     device = resolve_device(args.device)
+    mesh = None
     logdir = mangle_logdir(args)
+    if args.multihost:
+        if device.type == "cuda":
+            device = torch.device("cuda", distributed.local_rank())
+        mesh = make_mesh(device=device)
+        # the default --id is a per-process timestamp: pin every rank to
+        # rank 0's logdir
+        logdir = distributed.broadcast_str(logdir)
     os.makedirs(logdir, exist_ok=True)
 
     cfg = config_from_args(args)
@@ -241,8 +276,8 @@ def main(argv=None) -> int:
     # random weights from the run's seed, as the JAX engine's init
     model = BeamFuser(cfg, device=device,
                       generator=torch.Generator().manual_seed(opts.seed))
-    engine = Engine(model, cfg, opts, device=device)
-    ckpt.write_args(logdir, vars(args))
+    engine = Engine(model, cfg, opts, device=device, mesh=mesh)
+    ckpt.write_args(logdir, vars(args))         # rank 0's
 
     def load_model_path():
         d, name = os.path.split(args.load_model_path)
@@ -296,11 +331,21 @@ def main(argv=None) -> int:
 
     if args.cache_dir:
         from ..data.cache import CachedDataset, build_cache
-        train_set = CachedDataset(build_cache(
-            train_set, os.path.join(args.cache_dir, "train")))
+
+        def cached(ds, sub):
+            d = os.path.join(args.cache_dir, sub)
+            if mesh is not None:
+                # a shared cache directory: rank 0 featurizes (concurrent
+                # builders would race on the memmaps), the others find it
+                # built after the barrier
+                if mesh.rank == 0:
+                    build_cache(ds, d)
+                distributed.barrier("cache-" + sub)
+            return CachedDataset(build_cache(ds, d))
+
+        train_set = cached(train_set, "train")
         if val_set is not None:
-            val_set = CachedDataset(build_cache(
-                val_set, os.path.join(args.cache_dir, "val")))
+            val_set = cached(val_set, "val")
 
     val_loader = (DataLoader(val_set, args.batch_size,
                              num_workers=args.num_workers)
@@ -315,7 +360,19 @@ def main(argv=None) -> int:
         print("Val finish")
         return 0
 
-    train_loader = DataLoader(train_set, args.batch_size, shuffle=True,
+    local_bs = args.batch_size
+    if mesh is not None and mesh.world_size > 1:
+        # --batch_size is the global batch, split over the ranks as the
+        # reference's DataParallel splits it; Test and Val above feed the
+        # full batch to every rank
+        if args.batch_size % mesh.world_size:
+            raise ValueError(
+                f"--batch_size {args.batch_size} must be divisible by the "
+                f"process count {mesh.world_size}")
+        local_bs = args.batch_size // mesh.world_size
+        from ..data.dataset import shard_for_process
+        train_set = shard_for_process(train_set)
+    train_loader = DataLoader(train_set, local_bs, shuffle=True,
                               num_workers=args.num_workers)
     if engine.resume() and args.finetune:
         engine.init_state()

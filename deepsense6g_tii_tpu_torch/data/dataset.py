@@ -257,6 +257,29 @@ class Subset:
         return self.dataset[int(self.indices[index])]
 
 
+def shard_for_process(dataset, process_index: Optional[int] = None,
+                      process_count: Optional[int] = None):
+    """Process p's training shard (``deepsense6g_tii_tpu/data/dataset.py:
+    260-278``): rows p, p + n, p + 2n, ... of n processes, cut to a common
+    length so that every process runs the same number of steps; an unequal
+    count would leave one rank waiting in a collective for ever.  The
+    process group's rank and size by default; the dataset itself with one
+    process."""
+    from ..parallel import distributed
+    pid = (distributed.process_index() if process_index is None
+           else process_index)
+    nproc = (distributed.process_count() if process_count is None
+             else process_count)
+    if nproc == 1:
+        return dataset
+    per = len(dataset) // nproc
+    if per == 0:
+        raise ValueError(
+            f"dataset of {len(dataset)} samples cannot be sharded over "
+            f"{nproc} processes (every process needs at least one sample)")
+    return Subset(dataset, pid + np.arange(per) * nproc)
+
+
 def random_split(dataset, lengths: Sequence[int], seed: int = 100):
     """Subsets of a seeded permutation (np.random.default_rng(seed)), the
     JAX package's split."""

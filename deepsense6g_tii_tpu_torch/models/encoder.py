@@ -46,7 +46,7 @@ from ..ops.pooling import adaptive_avg_pool, global_avg_pool
 from ..ops.resize import interpolate_bilinear
 from .fusion import TimeMamba, TokenFusion
 from .resnet import (RESNET18_BLOCKS, RESNET34_BLOCKS, STAGE_FEATURES,
-                     ResNetBackbone)
+                     ResNetBackbone, bn_sample_mask)
 
 STAGE_UPSAMPLE = (8, 4, 2, 1)
 
@@ -140,10 +140,10 @@ class FusionEncoder(nn.Module):
         return (normalize_imagenet(image.float()), lidar.float(),
                 radar.float())
 
-    def _stage1(self, streams, backbones):
+    def _stage1(self, streams, backbones, masks=(None,) * 3):
         """Flatten (B, T) and cast each stream, then stem and stage1."""
-        return [bb.stage1(bb.stem(_flatten_bt(x).to(self.dtype)))
-                for bb, x in zip(backbones, streams)]
+        return [bb.stage1(bb.stem(_flatten_bt(x).to(self.dtype), m), m)
+                for bb, x, m in zip(backbones, streams, masks)]
 
     def encode_stage1(self, image, lidar, radar, backbones=None):
         """The three stage-1 maps, image, lidar, radar, each (B·T, h, w,
@@ -179,7 +179,8 @@ class FusionEncoder(nn.Module):
                 return_stage1: bool = False, apply_missing: bool = True,
                 generator: Optional[torch.Generator] = None,
                 rng: Optional[DropoutRNG] = None,
-                rebuild_generator: Optional[torch.Generator] = None):
+                rebuild_generator: Optional[torch.Generator] = None,
+                sample_mask: Optional[torch.Tensor] = None):
         """image: (B, T, H, W, 3) in [0, 255]; lidar: (B, T, H, W, 1);
         radar: (B, T, H, W, 1|2); gps: (B, gps_len, 2).  Returns the (B, 512)
         fused features in f32, and with ``return_stage1`` also the three
@@ -190,15 +191,20 @@ class FusionEncoder(nn.Module):
         ((B·T, h, w, 64)) replace the missing modality's stage-1 features;
         ``rebuild_generator`` (a CPU generator, so that the draw never waits
         for the card) decides the train-mode injection (JAX's
-        ``make_rng("rebuild")``)."""
+        ``make_rng("rebuild")``).  ``sample_mask`` ((B,), 1.0 real / 0.0
+        padded) keeps padded rows out of BatchNorm's train-mode statistics,
+        each stream by its own frames a sample (``bn_sample_mask``)."""
         cfg = self.config
         B = image.shape[0]
+        masks = [None if sample_mask is None
+                 else bn_sample_mask(sample_mask, x.shape[1])
+                 for x in (image, lidar, radar)]
         streams = self._streams(image, lidar, radar)
         if apply_missing:
             streams = self._apply_missing(streams, generator)
         backbones = (self.image_encoder, self.lidar_encoder,
                      self.radar_encoder)
-        feats = self._inject_rebuild(self._stage1(streams, backbones),
+        feats = self._inject_rebuild(self._stage1(streams, backbones, masks),
                                      rebuild_feats, rebuild_generator)
         stage1_feats = feats
 
@@ -215,8 +221,8 @@ class FusionEncoder(nn.Module):
                     for o in outs]
             feats = [f + o.to(f.dtype) for f, o in zip(feats, outs)]
             if i < 3:
-                feats = [getattr(bb, f"stage{i + 2}")(f)
-                         for bb, f in zip(backbones, feats)]
+                feats = [getattr(bb, f"stage{i + 2}")(f, m)
+                         for bb, f, m in zip(backbones, feats, masks)]
 
         tracks = [_unflatten_bt(global_avg_pool(f), B).float() for f in feats]
         if cfg.TFM:

@@ -110,12 +110,14 @@ class BeamFuser(nn.Module):
                 generator: Optional[torch.Generator] = None,
                 dropout_generator: Optional[torch.Generator] = None,
                 seed_generator: Optional[torch.Generator] = None,
-                rebuild_generator: Optional[torch.Generator] = None):
+                rebuild_generator: Optional[torch.Generator] = None,
+                sample_mask: Optional[torch.Tensor] = None):
         """NHWC sensor tensors -> (B, num_beams) f32 logits, or (B,
         pred_len, num_beams) when ``pred_len > 1``.  ``generator``
         feeds ``modality_missing_type="randlike"``; ``rebuild_feats`` and
         ``rebuild_generator`` (on the CPU) the modality-rebuild hook
-        (models/encoder.py).
+        (models/encoder.py); ``sample_mask`` ((B,), 1.0 real / 0.0 padded)
+        keeps padded rows out of BatchNorm's train-mode statistics.
 
         In train mode with any dropout rate > 0, ``dropout_generator`` (on
         the model's device: elementwise masks) and ``seed_generator`` (on
@@ -131,7 +133,8 @@ class BeamFuser(nn.Module):
             rng = DropoutRNG(dropout_generator, seed_generator)
         z = self.encoder(image, lidar, radar, gps,
                          rebuild_feats=rebuild_feats, generator=generator,
-                         rng=rng, rebuild_generator=rebuild_generator).float()
+                         rng=rng, rebuild_generator=rebuild_generator,
+                         sample_mask=sample_mask).float()
         z = torch.relu(self.join_fc1(z))
         z = torch.relu(self.join_fc2(z))
         z = self.join_fc3(z)

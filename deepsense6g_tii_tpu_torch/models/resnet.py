@@ -21,6 +21,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.pooling import max_pool_3x3s2
+from ..parallel.distributed import all_reduce_sum
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.9   # flax's convention: new = 0.9 * running + 0.1 * batch
@@ -62,7 +63,16 @@ class BatchNorm(nn.Module):
     ``running_var`` instead: a relative drift of about 1/N per update
     (N = B·T·H·W, at least ~160k at full width), a deviation the JAX
     package accepts (its ``resnet.py:24-27``) and the port keeps, so that
-    the port and the JAX package agree."""
+    the port and the JAX package agree.
+
+    ``mask`` ((N, 1, 1, 1) bool, ``bn_sample_mask``) keeps rows out of the
+    train-mode statistics, as flax's ``BatchNorm(mask=...)`` does; every
+    row is still normalised.  ``group`` (a process group, set by
+    ``parallel/mesh.py::sync_batchnorm``) takes the statistics over every
+    rank's rows, as a batch sharded over the JAX mesh does: one all-reduce
+    a layer of the masked sum, the masked sum of squares and the count, in
+    f32, whose backward all-reduces the gradient.  With neither, the
+    statistics are the plain means above."""
 
     def __init__(self, channels: int, momentum: float = BN_MOMENTUM):
         super().__init__()
@@ -71,15 +81,19 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
+        self.group = None
 
-    def forward(self, x):
+    def forward(self, x, mask=None):
         xf = x.float()
         if not self.training:
             mean, var = self.running_mean, self.running_var
         else:
             axes = tuple(range(x.dim() - 1))
-            mean = xf.mean(dim=axes)
-            var = ((xf * xf).mean(dim=axes) - mean * mean).clamp(min=0.0)
+            if mask is None and self.group is None:
+                mean = xf.mean(dim=axes)
+                var = ((xf * xf).mean(dim=axes) - mean * mean).clamp(min=0.0)
+            else:
+                mean, var = _global_stats(xf, mask, self.group)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.copy_(m * self.running_mean
@@ -87,6 +101,32 @@ class BatchNorm(nn.Module):
                 self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
         mul = torch.rsqrt(var + BN_EPS) * self.weight
         return ((xf - mean) * mul + self.bias).to(x.dtype)
+
+
+def _global_stats(xf, mask, group):
+    """The batch mean and biased variance over the rows that ``mask``
+    keeps (all without one), summed over ``group``'s ranks."""
+    axes = tuple(range(xf.dim() - 1))
+    c = xf.shape[-1]
+    if mask is not None:
+        xf = torch.where(mask, xf, xf.new_zeros(()))
+        count = mask.sum() * (xf[0].numel() // c)
+    else:
+        count = torch.full((), xf.numel() // c, device=xf.device)
+    packed = torch.cat([xf.sum(dim=axes), (xf * xf).sum(dim=axes),
+                        count.to(torch.float32).reshape(1)])
+    if group is not None:
+        packed = all_reduce_sum(packed, group)
+    n = packed[2 * c]
+    mean = packed[:c] / n
+    return mean, (packed[c:2 * c] / n - mean * mean).clamp(min=0.0)
+
+
+def bn_sample_mask(sample_mask, T: int):
+    """(B,) row mask (1.0 real, 0.0 padded) -> the (B·T, 1, 1, 1) bool
+    BatchNorm mask of a stream that flattens T frames a sample b-major
+    (``deepsense6g_tii_tpu/models/resnet.py:31-37``)."""
+    return sample_mask.bool().repeat_interleave(T)[:, None, None, None]
 
 
 class BasicBlock(nn.Module):
@@ -101,12 +141,12 @@ class BasicBlock(nn.Module):
             self.downsample_conv = Conv2d(in_ch, features, 1, stride, 0)
             self.downsample_bn = BatchNorm(features)
 
-    def forward(self, x):
+    def forward(self, x, mask=None):
         residual = x
         if self.downsample_conv is not None:
-            residual = self.downsample_bn(self.downsample_conv(x))
-        y = torch.relu(self.bn1(self.conv1(x)))
-        y = self.bn2(self.conv2(y))
+            residual = self.downsample_bn(self.downsample_conv(x), mask)
+        y = torch.relu(self.bn1(self.conv1(x), mask))
+        y = self.bn2(self.conv2(y), mask)
         return torch.relu(y + residual)
 
 
@@ -118,8 +158,8 @@ class ResNetStem(nn.Module):
         self.conv1 = Conv2d(in_ch, 64, 7, 2, 3)
         self.bn1 = BatchNorm(64)
 
-    def forward(self, x):
-        return max_pool_3x3s2(torch.relu(self.bn1(self.conv1(x))))
+    def forward(self, x, mask=None):
+        return max_pool_3x3s2(torch.relu(self.bn1(self.conv1(x), mask)))
 
 
 class ResNetStage(nn.Sequential):
@@ -129,6 +169,11 @@ class ResNetStage(nn.Sequential):
             (f"block{i}", BasicBlock(in_ch if i == 0 else features, features,
                                      stride if i == 0 else 1))
             for i in range(num_blocks)))
+
+    def forward(self, x, mask=None):
+        for block in self:
+            x = block(x, mask)
+        return x
 
 
 class ResNetBackbone(nn.Module):
@@ -143,8 +188,8 @@ class ResNetBackbone(nn.Module):
             self.add_module(f"stage{i + 1}", ResNetStage(
                 widths[i], STAGE_FEATURES[i], blocks[i], STAGE_STRIDES[i]))
 
-    def forward(self, x):
-        x = self.stem(x)
+    def forward(self, x, mask=None):
+        x = self.stem(x, mask)
         for i in range(1, 5):
-            x = getattr(self, f"stage{i}")(x)
+            x = getattr(self, f"stage{i}")(x, mask)
         return x

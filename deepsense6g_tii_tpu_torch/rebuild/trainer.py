@@ -32,8 +32,11 @@ model's device seeded by ``SeedSequence([seed, s])`` and, for
 by ``SeedSequence([seed, s + 2])``; eval batch i of step s from
 ``SeedSequence([seed, s, i])``.  JAX's random bits cannot be matched.
 
-Not in the port: ``mesh`` (data-parallel rebuild training, ROADMAP.md Queue
-1 item 7); :meth:`RebuildTrainer.shard` moves a batch to the device.
+Not in the port yet: ``mesh``, data-parallel rebuild training, whose
+NT-Xent similarity couples the batch and needs an all-gather of the
+embeddings with autograd (ROADMAP.md Queue 1 item 7's remainder; the beam
+model's data parallelism is ``parallel/``); :meth:`RebuildTrainer.shard`
+moves a batch to the device.
 """
 
 from __future__ import annotations

@@ -24,6 +24,19 @@ importing this module (or the port's ``ops.flash_attention`` and
     pred.export_artifact("build/serve/gpt_b8.pt2")            # batch 8
     idx, conf = ExportedPredictor("build/serve/gpt_b8.pt2").predict(...)
 
+``use_mesh=True`` (``serve.py:27-41`` of the JAX package) serves over all
+local GPUs: one replica of the model a device, each bucket's rows split
+evenly across them, every replica's forward queued before any result is
+read back, and the logits gathered on the first device.  The host still
+issues each replica's launches in turn, so a host-bound model serves
+slower over a mesh than on one device (PERF.md); the option keeps the JAX
+package's API, and letting the replicas overlap is ROADMAP.md Queue 1
+item 7's remainder.  Buckets then count per
+mesh: a request pads to a bucket times the device count, and so does an
+artifact's default batch.  A
+:class:`~deepsense6g_tii_tpu_torch.parallel.mesh.Mesh` in its place names
+the devices (two replicas on one card, or two CPU devices in a test).
+
 Run as a script, it serves a checkpoint, chosen by its suffix (``.pt``,
 ``.msgpack`` or ``.pth``), on synthetic requests and prints one JSON line
 of latency.  The flags and defaults are the JAX serve CLI's: ``--FFM 1
@@ -38,9 +51,10 @@ plain paths, as the JAX CLI does off the TPU:
 
 from __future__ import annotations
 
+import copy
 import time
 from collections import Counter
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -53,6 +67,7 @@ from .models.msgpack import read_flax_msgpack
 from .models.weights import from_jax_variables
 # registered custom ops, which an artifact calls by name
 from .ops import _build, flash_attention, selective_scan
+from .parallel.mesh import Mesh, make_mesh
 from .utils.device import resolve_device
 
 # the serving kernels' launch-count names -> their custom ops' names in an
@@ -62,14 +77,37 @@ KERNEL_OPS = {m.KERNEL: f"{_build.OP_NAMESPACE}.{m.OP_NAME}.default"
 
 
 class Predictor:
+    """``use_mesh``: ``True`` serves over :func:`make_mesh`'s local
+    devices, a ``Mesh`` over its devices; the first holds ``model`` and
+    must be ``device`` (``"cuda"`` names any card); ``False`` serves on
+    ``device`` alone."""
+
     def __init__(self, model: BeamFuser, config: GlobalConfig,
                  batch_buckets: Sequence[int] = (1, 8), top_k: int = 3,
-                 device="cuda"):
+                 device="cuda", use_mesh: Union[bool, Mesh] = False):
         self.device = resolve_device(device)
+        self.mesh = None
+        if use_mesh:
+            self.mesh = use_mesh if isinstance(use_mesh, Mesh) else (
+                make_mesh())
+            first = self.mesh.device
+            if first.type != self.device.type or self.device.index not in (
+                    None, first.index):
+                raise ValueError(f"the mesh's first device {first} is not "
+                                 f"{self.device}")
+            self.device = first
         self.config = config
         self.model = model.to(self.device).eval()
         self.buckets = tuple(sorted(batch_buckets))
         self.top_k = top_k
+        # one replica a device, its weights copied there once
+        self.replicas = [self.model] + ([] if self.mesh is None else [
+            copy.deepcopy(self.model).to(d) for d in self.mesh.devices[1:]])
+
+    @property
+    def n_devices(self) -> int:
+        """The devices a request's rows split over."""
+        return len(self.replicas)
 
     # -- constructors ------------------------------------------------------
 
@@ -98,10 +136,11 @@ class Predictor:
     # -- inference ---------------------------------------------------------
 
     def _bucket(self, n: int) -> int:
+        m = self.n_devices
         for b in self.buckets:
-            if n <= b:
-                return b
-        top = self.buckets[-1]
+            if n <= b * m:
+                return b * m
+        top = self.buckets[-1] * m
         return -(-n // top) * top
 
     def _input_shapes(self, b: int):
@@ -125,16 +164,25 @@ class Predictor:
             a = np.asarray(a, dtype=np.float32)
             if b != n:
                 a = np.pad(a, ((0, b - n),) + ((0, 0),) * (a.ndim - 1))
-            arrs.append(torch.from_numpy(a).to(self.device))
-        logits = self.model(*arrs)
+            arrs.append(torch.from_numpy(a))
+        if self.mesh is None:
+            logits = self.model(*(a.to(self.device) for a in arrs))
+        else:
+            # every replica's inputs copied and its forward queued before
+            # any result is read back
+            per = b // self.n_devices
+            inputs = [[a[i * per:(i + 1) * per].to(d) for a in arrs]
+                      for i, d in enumerate(self.mesh.devices)]
+            outs = [model(*x) for model, x in zip(self.replicas, inputs)]
+            logits = torch.cat([o.to(self.device) for o in outs])
         probs = torch.softmax(logits.float(), dim=-1)
         conf, idx = torch.topk(probs, self.top_k, dim=-1)
         return (idx[:n].cpu().numpy() + 1,        # 1-indexed, beam_pred.csv
                 conf[:n, 0].cpu().numpy())
 
     def warmup(self) -> None:
-        """One request at each bucket size."""
-        for b in self.buckets:
+        """One request at each bucket size (times the mesh's devices)."""
+        for b in (bk * self.n_devices for bk in self.buckets):
             self.predict(*(np.zeros(s, np.float32)
                            for s in self._input_shapes(b)))
 
@@ -160,22 +208,24 @@ class Predictor:
                 "mean_ms": float(t.mean()), "batch": batch}
 
     def _sync(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        for d in set(self.mesh.devices if self.mesh else (self.device,)):
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
 
     # -- the serving artifact (torch.export) --------------------------------
 
     def export_program(self, batch_size: Optional[int] = None
                        ) -> "torch.export.ExportedProgram":
         """The serving forward (:class:`ServingForward`) traced by
-        ``torch.export`` at a fixed batch (default: the largest bucket),
-        f32 inputs of :meth:`predict`'s shapes on this predictor's device.
+        ``torch.export`` at a fixed batch (default: the largest bucket
+        times the mesh's devices), f32 inputs of :meth:`predict`'s shapes
+        on this predictor's device.
 
         The trace runs under ``torch.no_grad()``: the kernel wrappers then
         call their custom ops (with grad they would take their autograd
         Functions, which ``torch.export`` cannot trace), and the model's
         parameters are left as they are."""
-        b = batch_size or self.buckets[-1]
+        b = batch_size or self.buckets[-1] * self.n_devices
         args = tuple(torch.zeros(s, device=self.device)
                      for s in self._input_shapes(b))
         with torch.no_grad():

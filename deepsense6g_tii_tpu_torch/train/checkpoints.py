@@ -14,6 +14,11 @@ The model's state is keyed by the port's parameter names, which are the
 flax scope names that ``models/weights.py::from_jax_variables`` produces
 (``encoder.image_encoder.stem.conv1.weight``, ...).  Files hold CPU
 tensors only and load with ``weights_only=True``.
+
+In a process group (parallel/distributed.py) only rank 0 writes: every
+writer here returns at once on another rank, before it copies anything
+off the card.  Rank 0 flushes its async writes before the barrier that
+precedes a read (``train/engine.py``); every rank reads.
 """
 
 from __future__ import annotations
@@ -26,6 +31,8 @@ import threading
 from typing import Any, Dict, Mapping, Optional
 
 import torch
+
+from ..parallel.distributed import process_index
 
 
 class AsyncWriter:
@@ -111,6 +118,8 @@ def _snapshot(tree):
 
 
 def _write(path: str, tree: Any, async_write: bool = False) -> None:
+    if process_index() != 0:
+        return
     host = _snapshot(tree)
     if async_write:
         _ASYNC.submit(path, host)
@@ -165,6 +174,8 @@ def write_run_record(logdir: str, record: Dict,
     """recent.log: bare ``json.dumps`` of the record.  ``async_write``
     queues it behind the pending checkpoint writes (FIFO)."""
     path = os.path.join(logdir, "recent.log")
+    if process_index() != 0:
+        return
     if async_write:
         _ASYNC.submit_json(path, record)
         return
@@ -181,6 +192,8 @@ def read_run_record(logdir: str) -> Optional[Dict]:
 
 def write_args(logdir: str, args: Dict) -> None:
     """args.txt: the CLI's arguments as indented JSON."""
+    if process_index() != 0:
+        return
     with open(os.path.join(logdir, "args.txt"), "w") as f:
         json.dump(args, f, indent=2)
 

@@ -18,10 +18,22 @@ be in flight) and copies it to the card with ``non_blocking=True`` on a
 copy stream, one batch ahead of the step that uses it.  A batch crosses in
 the dtypes the loader gives: ``data/cache.py::CachedBatchLoader``'s uint8
 and float16 storage is upcast by the steps on the card
-(``train/steps.py::upcast``), so the copy moves the compact bytes.  Ragged
-batches go to the step as they are (exact rows: BatchNorm's statistics and
-the loss see only real samples), where the JAX engine pads to its mesh and
-masks.
+(``train/steps.py::upcast``), so the copy moves the compact bytes.
+
+Over a process group (``mesh``, parallel/mesh.py; one process per GPU,
+JAX ``engine.py:93-125,179-250``), every rank runs this loop on its own
+shard of the training set (``data/dataset.py::shard_for_process``), and
+the steps keep the ranks' weights equal.  A rank trains on one device, so
+a ragged batch goes to the step as it is (exact rows: BatchNorm's
+statistics and the loss see only real samples) and nothing is padded; a
+mesh of several local devices (a serving mesh) is refused.  The
+``valid``-masked padding of ``parallel/mesh.py::pad_batch`` waits for the
+fixed-shape dispatch (ROADMAP.md Queue 1 item 5).  The once-an-epoch
+readback all-gathers the train
+rows, so that the best-model, rollback and finetune decisions agree on
+every rank; validation and test run the full split on every rank.  Only
+rank 0 logs and writes (``train/checkpoints.py``), and a barrier comes
+before any read of what it wrote.
 """
 
 from __future__ import annotations
@@ -38,6 +50,8 @@ import numpy as np
 import torch
 
 from ..config import SCENARIOS, GlobalConfig
+from ..parallel import distributed
+from ..parallel.mesh import Mesh
 from ..utils.device import resolve_device
 from . import checkpoints as ckpt
 from .metrics import compute_acc, compute_dba_score, flatten_multistep
@@ -47,7 +61,7 @@ from .state import TrainState, create_train_state
 from .steps import make_eval_step, make_train_step
 
 DEVICE_KEYS = ("image", "lidar", "radar", "gps", "beam", "beamidx",
-               "rebuild_feats")
+               "rebuild_feats", "valid")
 
 
 @dataclasses.dataclass
@@ -87,19 +101,30 @@ class TrainOptions:
 class Engine:
     """Trains ``model`` (a ``BeamFuser`` on ``device``) with ``opts``.
     ``device="cuda"`` (the default) raises without CUDA; tests pass
-    ``device="cpu"``."""
+    ``device="cpu"``.  ``mesh`` (``parallel.mesh.make_mesh()`` after
+    ``parallel.distributed.initialize``) trains over its process group."""
 
     def __init__(self, model, cfg: GlobalConfig, opts: TrainOptions,
-                 device="cuda"):
+                 device="cuda", mesh: Optional[Mesh] = None):
         if opts.flatten_accum:
             raise NotImplementedError(
                 "flatten_accum is a TPU dispatch knob the PyTorch port does "
                 "not take (ROADMAP.md, Out of scope)")
+        if mesh is not None and len(mesh.devices) != 1:
+            raise ValueError(
+                f"the engine trains on one device a rank; a mesh of "
+                f"{len(mesh.devices)} local devices is a serving mesh: "
+                f"start a rank a device (--multihost 1 under "
+                f"torch.distributed.run)")
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.cfg = cfg
         self.opts = opts
-        self.logger = ckpt.ScalarLogger(opts.logdir)
+        self.mesh = mesh
+        self._world = 1 if mesh is None else mesh.world_size
+        self._lead = mesh is None or mesh.rank == 0
+        self.logger = (ckpt.ScalarLogger(opts.logdir) if self._lead
+                       else ckpt.NullLogger())
 
         self.cur_epoch = 0
         self.cur_iter = 0
@@ -124,7 +149,8 @@ class Engine:
         needs shapes to initialise); the port's model holds its weights."""
         del batch
         o, m, dev = self.opts, self.model, self.device
-        self.state = create_train_state(m, mu_dtype=self.cfg.opt_mu_dtype)
+        self.state = create_train_state(m, mu_dtype=self.cfg.opt_mu_dtype,
+                                        mesh=self.mesh)
         kw = dict(loss_name=o.loss, temp_coef=o.temp_coef, rng_seed=o.seed,
                   device=dev)
         self.train_step = make_train_step(
@@ -282,11 +308,11 @@ class Engine:
             self.timer.tick()
         loss_h, pred_all = self._read_back([torch.stack(losses),
                                             torch.cat(ranks)])
-        loss_epoch = float(loss_h.mean())
+        loss_epoch = float(loss_h.mean())     # each step's loss is global
         epoch_s = time.perf_counter() - t0          # includes the final sync
         stats = {"epoch": self.cur_epoch + 1, "epoch_s": epoch_s,
                  "samples": n_samples,
-                 "samples_per_sec": n_samples / epoch_s,
+                 "samples_per_sec": self._world * n_samples / epoch_s,
                  "step_ms_mean": 1e3 * epoch_s / n_batches,
                  "data_wait_share": waited / epoch_s,
                  "readbacks": self.readbacks - readbacks}
@@ -302,7 +328,10 @@ class Engine:
         for tag, v in self.timer.stats(n_samples // n_batches).items():
             self.logger.scalar(f"perf/dispatch_{tag}", v, self.cur_epoch + 1)
 
-        gt_all = np.concatenate(gt_all, 0)
+        # every rank's rows, in rank order, so that the decisions below
+        # agree on every rank
+        pred_all = distributed.gather_rows(pred_all)
+        gt_all = distributed.gather_rows(np.concatenate(gt_all, 0))
         if pred_all.ndim == 3:
             pred_all, gt_all = flatten_multistep(pred_all, gt_all)
         acc = compute_acc(pred_all, gt_all)
@@ -323,7 +352,7 @@ class Engine:
 
     def validate(self, loader: Iterable[Dict]) -> float:
         """Validation epoch with per-scenario DBA, on the EMA weights when
-        ``opts.ema``."""
+        ``opts.ema``; every rank runs the full split."""
         if self.state is None:
             self.init_state()
         losses, ranks, gt_all, scen_all = [], [], [], []
@@ -370,7 +399,8 @@ class Engine:
 
     def test(self, loader: Iterable[Dict], out_dir: str = ".") -> np.ndarray:
         """Test pass on the raw weights: writes beam_pred.csv (1-indexed
-        top-1/2/3) and the softmax-confidence CSV into ``out_dir``."""
+        top-1/2/3) and the softmax-confidence CSV into ``out_dir`` (rank 0;
+        every rank runs the full split)."""
         if self.state is None:
             self.init_state()
         ranks, conf = [], []
@@ -380,16 +410,19 @@ class Engine:
             conf.append(m["confidence"])
         pred_all, conf_all = self._read_back([torch.cat(ranks),
                                               torch.cat(conf)])
-        save_pred_to_csv(pred_all,
-                         target_csv=os.path.join(out_dir, "beam_pred.csv"))
-        save_confidence_to_csv(conf_all, target_csv=os.path.join(
-            out_dir, "beam_pred_confidence_seq.csv"))
+        if self._lead:
+            save_pred_to_csv(pred_all, target_csv=os.path.join(
+                out_dir, "beam_pred.csv"))
+            save_confidence_to_csv(conf_all, target_csv=os.path.join(
+                out_dir, "beam_pred_confidence_seq.csv"))
         return pred_all
 
     # -- checkpoint policy -------------------------------------------------------
 
     def save(self) -> None:
-        """Per-epoch checkpoints with the best-model and rollback policy."""
+        """Per-epoch checkpoints with the best-model and rollback policy.
+        Every rank takes the same decisions (the metrics are global); the
+        writes are rank 0's (``train/checkpoints.py``)."""
         save_best = False
         if self.DBA and self.DBA[-1] >= self.bestval:
             self.bestval = self.DBA[-1]
@@ -417,6 +450,7 @@ class Engine:
             print("====== Overwrote best model ======>")
         if not save_best and self.opts.load_previous_best:
             ckpt.flush()        # read after write: land pending saves
+            distributed.barrier("rollback")     # rank 0's files landed
             ckpt.load_model(logdir, "best_model", self.model)
             # the live EMA shadow is not rolled back: only the model and the
             # optimizer return to the best epoch's, as in the JAX package
@@ -453,6 +487,7 @@ class Engine:
         if self.state is None:
             self.init_state()
         ckpt.flush()                # land any pending async writes
+        distributed.barrier("load_weights")     # rank 0's files landed
         ckpt.load_model(logdir or self.opts.logdir, name, self.model)
         with torch.no_grad():
             for n, p in self.model.named_parameters():

@@ -9,6 +9,11 @@ the decay on the pre-update weights, applied to all parameters (the
 reference's decay/no-decay split is dead code).  The two differ only in the
 order of f32 roundings.  The EMA shadow is a dict of f32 tensors keyed by
 parameter name, updated as ``decay·e + (1 − decay)·p``.
+
+Over a process group (``mesh``, parallel/mesh.py) the state starts from
+rank 0's weights and statistics, broadcast once, and the backbones'
+BatchNorms take their statistics over the group; the train step keeps the
+ranks equal from there (train/steps.py).
 """
 
 from __future__ import annotations
@@ -19,6 +24,8 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
+from ..parallel.mesh import Mesh, replicate, sync_batchnorm
+
 
 @dataclass
 class TrainState:
@@ -26,6 +33,7 @@ class TrainState:
     optimizer: torch.optim.Optimizer
     ema: Dict[str, torch.Tensor]   # the EMA shadow (== params without EMA)
     step: int = 0   # BatchNorm's running statistics are the model's buffers
+    mesh: Optional[Mesh] = None    # the process group the steps reduce over
 
 
 def make_optimizer(model: nn.Module, weight_decay: float = 0.01,
@@ -44,13 +52,18 @@ def make_optimizer(model: nn.Module, weight_decay: float = 0.01,
 
 def create_train_state(model: nn.Module, weight_decay: float = 0.01,
                        flatten: bool = False,
-                       mu_dtype: Optional[str] = None) -> TrainState:
+                       mu_dtype: Optional[str] = None,
+                       mesh: Optional[Mesh] = None) -> TrainState:
     """AdamW over ``model``'s parameters and an EMA shadow that starts as a
-    copy of them."""
+    copy of them.  With a ``mesh`` of more than one rank, the model's
+    parameters and buffers are rank 0's first (so the EMA shadow, copied
+    after, is too) and its BatchNorms sync over the group."""
+    replicate(model, mesh)
+    sync_batchnorm(model, mesh)
     opt = make_optimizer(model, weight_decay, flatten, mu_dtype)
     ema = {name: p.detach().float().clone()
            for name, p in model.named_parameters()}
-    return TrainState(model=model, optimizer=opt, ema=ema)
+    return TrainState(model=model, optimizer=opt, ema=ema, mesh=mesh)
 
 
 def set_learning_rate(state: TrainState, lr: float) -> None:

@@ -8,7 +8,9 @@ microbatch i draw from generators seeded by
 ``numpy.random.SeedSequence([rng_seed, s, i]).generate_state(3)``: the
 first word seeds the dropout generator on the model's device (elementwise
 masks), the second a CPU generator for the attention kernels' int32 seeds,
-the third the device generator of ``modality_missing_type="randlike"``.
+the third the device generator of ``modality_missing_type="randlike"``
+(over a process group, ``[rng_seed, s, i, rank]``: each rank draws its
+own).
 A batch with ``rebuild_feats`` (the modality-rebuild hook, (B·T, h, w,
 64)) also draws the train-mode injection from a CPU generator seeded by
 the fourth word of ``SeedSequence([rng_seed, s + 2, i])``, as the JAX step
@@ -39,6 +41,7 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import GlobalConfig
 from ..data.cache import RADAR_UINT8_SCALE
@@ -86,12 +89,13 @@ def upcast(key: str, x: torch.Tensor) -> torch.Tensor:
 
 
 def compute_loss(cfg: GlobalConfig, loss_name: str, temp_coef: bool,
-                 logits, batch):
+                 logits, batch, denom: Optional[torch.Tensor] = None):
     """Soft ``beam`` targets (``temp_coef``) or integer ``beamidx``, the
     optional ``valid`` row weights, focal or cross-entropy loss.  The
     multi-step decoder's (B, P, C) logits and (B, P[, C]) targets are
     flattened to B·P rows, each sample's weight repeated P times
-    (``deepsense6g_tii_tpu/train/steps.py:58-78``)."""
+    (``deepsense6g_tii_tpu/train/steps.py:58-78``).  ``denom`` divides the
+    weighted sum in place of the batch's own weight total (losses.py)."""
     target = batch["beam"] if temp_coef else batch["beamidx"]
     weight = batch.get("valid")
     if logits.ndim == 3:
@@ -102,15 +106,23 @@ def compute_loss(cfg: GlobalConfig, loss_name: str, temp_coef: bool,
                                 else (-1,))
     if loss_name == "focal":
         return focal_loss(logits, target, num_classes=cfg.num_beams,
-                          sample_weight=weight)
-    return cross_entropy_loss(logits, target, sample_weight=weight)
+                          sample_weight=weight, denom=denom)
+    return cross_entropy_loss(logits, target, sample_weight=weight,
+                              denom=denom)
 
 
 class _Generators:
-    """The generators of step ``step``, microbatch ``micro``."""
+    """The generators of step ``step``, microbatch ``micro``.  Over a
+    process group, each ``rank`` seeds its own dropout, attention-seed and
+    ``randlike`` streams (the same masks on every rank's rows would
+    correlate them), while the rebuild injection, one decision for the
+    global batch, draws alike on every rank; ``rank=None`` keeps the
+    single-process streams."""
 
-    def __init__(self, rng_seed: int, step: int, micro: int, device):
-        s = np.random.SeedSequence([rng_seed, step, micro]).generate_state(3)
+    def __init__(self, rng_seed: int, step: int, micro: int, device,
+                 rank: Optional[int] = None):
+        entropy = [rng_seed, step, micro] + ([] if rank is None else [rank])
+        s = np.random.SeedSequence(entropy).generate_state(3)
         self.dropout = torch.Generator(device=device).manual_seed(int(s[0]))
         self.seeds = torch.Generator().manual_seed(int(s[1]))
         self.missing = torch.Generator(device=device).manual_seed(int(s[2]))
@@ -133,6 +145,15 @@ def _rows(x, key: str, n: int, i: int, K: int):
     return x.reshape(n, -1, *x.shape[1:])[i::K].flatten(0, 1)
 
 
+def _flat_all_reduce(tensors, group) -> None:
+    """Sums each tensor over the group in place, through one flat f32
+    buffer: one all-reduce however many tensors."""
+    flat = torch.cat([t.reshape(-1).float() for t in tensors])
+    dist.all_reduce(flat, group=group)
+    for t, v in zip(tensors, flat.split([t.numel() for t in tensors])):
+        t.copy_(v.view_as(t))
+
+
 def make_train_step(model, cfg: GlobalConfig, state: TrainState,
                     loss_name: str = "focal", temp_coef: bool = True,
                     use_ema: bool = False, ema_decay: float = 0.999,
@@ -146,15 +167,36 @@ def make_train_step(model, cfg: GlobalConfig, state: TrainState,
     and optionally ``rebuild_feats`` for the encoder's rebuild hook), in
     f32 or in the cache's compact dtypes, upcast on the device
     (:func:`upcast`); ``loss`` is a 0-d tensor and ``ranks`` the (B,
-    num_beams) beam indices by descending logit, both on the device.  A ``valid`` row mask (the JAX
-    engine's padded batches, which also mask BatchNorm's statistics) is not
-    taken yet and raises.
+    num_beams) beam indices by descending logit, both on the device.
+
+    ``valid`` ((B,), 1.0 real / 0.0 padded; a padded batch,
+    ``parallel/mesh.py::pad_batch``) weights the loss's rows and keeps the
+    padded ones out of BatchNorm's statistics, so that the step equals the
+    unpadded one (``deepsense6g_tii_tpu/train/steps.py:97-104``).
 
     ``grad_accum`` K > 1 runs microbatch i on rows [i::K], each with fresh
     dropout draws; BatchNorm statistics chain through the K forwards, and
     the gradients and the loss are the mean over the K microbatches (the JAX
     step's weights d_i, all 1 without ``valid``), which gives the full
-    batch's gradient of the mean loss."""
+    batch's gradient of the mean loss.
+
+    Over a process group (``state.mesh``, one process per GPU), ``batch``
+    is this rank's rows of the global batch, and the step is JAX's step on
+    that global batch.  BatchNorm's statistics are global (models/
+    resnet.py); the weight total of the global batch (Σ ``valid``, or the
+    row count) is all-reduced before the forward and each microbatch's
+    loss is its weighted sum over that total, so that every rank's loss
+    carries its share of the global mean; after the backward (after all K
+    microbatches) one all-reduce sums the gradients, and the loss with
+    them, through one flat buffer.  The gradients add and are not
+    averaged.  Clipping, AdamW and the EMA then run on the same numbers on
+    every rank, which keeps the ranks' weights bit-equal.  The same
+    normalisation serves ``valid`` in a single process.  A hand-written
+    reduction and not DDP: the zero gradients of unused parameters keep
+    one layout on every rank, the global normalisation under ``valid`` is
+    exact, and ``grad_accum`` needs no ``no_sync`` bookkeeping (DDP's
+    overlap of the reduction with the backward is ROADMAP.md Queue 1 item
+    7's remainder)."""
     dev = resolve_device(device)
     if state.model is not model:
         raise ValueError("state was not created for this model")
@@ -164,52 +206,75 @@ def make_train_step(model, cfg: GlobalConfig, state: TrainState,
     K = int(grad_accum)
     names, params = zip(*model.named_parameters())
     ema = [state.ema[n] for n in names]
+    mesh = state.mesh
+    group = mesh.group if mesh is not None and mesh.world_size > 1 else None
+    rank = None if group is None else mesh.rank
+    # a sample's rows in the loss: the multi-step decoder flattens P steps
+    rows_per_sample = cfg.pred_len if cfg.pred_len > 1 else 1
 
-    def forward_loss(mb, micro):
-        gens = _Generators(rng_seed, state.step, micro, dev)
+    def forward_loss(mb, micro, denom=None):
+        gens = _Generators(rng_seed, state.step, micro, dev, rank)
+        # the mask is threaded only when the batch was padded, so that an
+        # unpadded step keeps its exact path
+        mask_kw = {"sample_mask": mb["valid"]} if "valid" in mb else {}
         logits = model(*(mb[k] for k in _INPUTS),
                        rebuild_feats=mb.get("rebuild_feats"),
                        generator=_missing_generator(cfg, gens),
                        rebuild_generator=gens.rebuild,
                        dropout_generator=gens.dropout,
-                       seed_generator=gens.seeds)
-        return logits, compute_loss(cfg, loss_name, temp_coef, logits, mb)
+                       seed_generator=gens.seeds, **mask_kw)
+        return logits, compute_loss(cfg, loss_name, temp_coef, logits, mb,
+                                    denom)
+
+    def global_weight(b, n):
+        """The loss's denominator: the global batch's weight total, all
+        ranks and microbatches, clamped at 1."""
+        w = (b["valid"].float().sum() if "valid" in b
+             else torch.full((), float(n), device=dev))
+        w = w * rows_per_sample
+        if group is not None:
+            dist.all_reduce(w, group=group)
+        return w.clamp(min=1.0)
 
     def step(batch, lr):
-        if "valid" in batch:
-            raise NotImplementedError(
-                "a valid row mask (padded batches, masked out of BatchNorm's "
-                "statistics) is not in the port yet: ROADMAP.md Queue 1 "
-                "item 7, with multi-GPU training")
         model.train()
         b = _to_device(batch, dev)
         set_learning_rate(state, lr)
         state.optimizer.zero_grad(set_to_none=True)
-        if K <= 1:
-            logits, loss = forward_loss(b, 0)
-            loss.backward()
-        else:
-            n = b["image"].shape[0]
-            if n % K:
-                raise ValueError(f"grad_accum={K} requires the batch ({n}) "
-                                 f"to split evenly")
-            lsum, micro_logits = 0.0, []
-            for i in range(K):
-                lg, loss_i = forward_loss(
-                    {k: _rows(v, k, n, i, K) for k, v in b.items()}, i)
-                loss_i.backward()          # p.grad sums the K gradients
-                lsum = lsum + loss_i.detach()
-                micro_logits.append(lg.detach())
+        n = b["image"].shape[0]
+        if n % K:
+            raise ValueError(f"grad_accum={K} requires the batch ({n}) "
+                             f"to split evenly")
+        # with grad_accum, a rank's rows [i::K] are the global rows [i::K]
+        # that it holds: its block starts at a multiple of its batch, which
+        # K divides (the JAX step asks batch % (K·n_devices) == 0 for it)
+        micro = [b] if K <= 1 else [
+            {k: _rows(v, k, n, i, K) for k, v in b.items()} for i in range(K)]
+        denom = (global_weight(b, n) if group is not None or "valid" in b
+                 else None)
+        lsum, micro_logits = 0.0, []
+        for i, mb in enumerate(micro):
+            lg, loss_i = forward_loss(mb, i, denom)
+            loss_i.backward()          # p.grad sums the K gradients
+            lsum = lsum + loss_i.detach()
+            micro_logits.append(lg.detach())
+        loss = lsum
+        if denom is None and K > 1:    # each microbatch's own mean
             for p in params:
                 if p.grad is not None:
                     p.grad.div_(K)
             loss = lsum / K
-            # row j*K + i of the batch is row j of microbatch i
-            logits = torch.stack(micro_logits, 1).reshape(
-                n, *micro_logits[0].shape[1:])
+        # row j*K + i of the batch is row j of microbatch i
+        logits = micro_logits[0] if K <= 1 else torch.stack(
+            micro_logits, 1).reshape(n, *micro_logits[0].shape[1:])
         for p in params:           # an unused parameter: a zero gradient
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        if group is not None:
+            # the shares' gradients and losses add up to the global step's
+            loss = loss.reshape(1).clone()
+            _flat_all_reduce([p.grad for p in params] + [loss], group)
+            loss = loss[0]
         if clip_grad_norm is not None:
             # the scale min(1, c / (|g| + 1e-6)) of the JAX step
             torch.nn.utils.clip_grad_norm_(params, clip_grad_norm)

@@ -21,15 +21,19 @@ from test_torch_modules import two_torch_threads  # noqa: F401 (autouse)
 
 # flags that raise NotImplementedError, with a value that triggers it
 RAISING = {
-    "multihost": "1", "merge_lidar_radar": "1",
+    "merge_lidar_radar": "1",
     "padded_token_stream": "1", "flatten_accum": "1",
     "opt_mu_dtype": "bfloat16", "flash_dropout_impl": "hw",
 }
-# flags that raised until the 30-to-5 variant, the reference import and
-# the memmap cache were ported; runs of main with them:
-# tests/test_torch_30to5.py, test_main_cache_dir_builds_then_reuses below
+# flags that raised until the 30-to-5 variant, the reference import, the
+# memmap cache and multi-GPU training were ported; runs of main with them:
+# tests/test_torch_30to5.py, test_main_cache_dir_builds_then_reuses below,
+# tests/test_torch_parallel.py
 PORTED = {"load_torch_checkpoint": "x.pth", "pred_len": "5",
-          "cache_dir": "cache"}
+          "cache_dir": "cache", "multihost": "1"}
+LAUNCHER_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+                "MASTER_PORT", "DEEPSENSE_COORDINATOR",
+                "DEEPSENSE_NUM_PROCESSES", "DEEPSENSE_PROCESS_ID")
 SMALL_FLAGS = ["--seq_len", "2", "--compute_dtype", "float32",
                "--input_resolution", "64", "--vert_anchors", "2",
                "--horz_anchors", "2", "--n_layer", "1",
@@ -78,7 +82,18 @@ def test_reference_flags_accepted():
 
 
 @pytest.mark.parametrize("flag", sorted({**RAISING, **PORTED}))
-def test_unported_flags_raise(flag, tmp_path):
+def test_unported_flags_raise(flag, tmp_path, monkeypatch):
+    if flag == "multihost":
+        # accepted now; without a launcher, initialize refuses the silent
+        # single-process run
+        for name in LAUNCHER_ENV:
+            monkeypatch.delenv(name, raising=False)
+        cli.check_args(cli.build_parser().parse_args(["--multihost", "1"]))
+        with pytest.raises(RuntimeError, match="torch.distributed.run"):
+            cli.main(["--device", "cpu", "--logdir", str(tmp_path / "r"),
+                      "--multihost", "1"])
+        assert not os.path.exists(tmp_path / "r")
+        return
     if flag in PORTED:
         args = cli.build_parser().parse_args([f"--{flag}", PORTED[flag]])
         cli.check_args(args)                 # accepted now

@@ -235,7 +235,9 @@ def test_package_imports_with_jax_blocked():
             "deepsense6g_tii_tpu_torch.tools.trace",
             "deepsense6g_tii_tpu_torch.tools.bench_serve",
             "deepsense6g_tii_tpu_torch.tools.profile_step",
-            "deepsense6g_tii_tpu_torch.tools.bench_matrix"} <= set(modules)
+            "deepsense6g_tii_tpu_torch.tools.bench_matrix",
+            "deepsense6g_tii_tpu_torch.parallel.distributed",
+            "deepsense6g_tii_tpu_torch.parallel.mesh"} <= set(modules)
     code = ("import sys, importlib\n"
             "for m in ('jax', 'jaxlib', 'flax', 'msgpack',\n"
             "          'deepsense6g_tii_tpu'):\n"

@@ -459,8 +459,20 @@ def test_step_refuses_what_it_does_not_take(setup):
     with pytest.raises(NotImplementedError, match="TPU"):
         make_optimizer(model, flatten=True)
     step = steps.make_train_step(model, model.config, state, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        step({**batches[0], "valid": np.ones(B, np.float32)}, LR)
+    # a valid row mask is taken: all rows valid, the step is the unmasked one
+    ref = _port_model(variables)
+    ref_state = create_train_state(ref)
+    want = steps.make_train_step(ref, ref.config, ref_state, device="cpu")(
+        batches[0], LR)
+    got = step({**batches[0], "valid": np.ones(B, np.float32)}, LR)
+    np.testing.assert_allclose(float(got["loss"]), float(want["loss"]),
+                               rtol=1e-6)
+    np.testing.assert_array_equal(_np(got["ranks"]), _np(want["ranks"]))
+    mine, theirs = _snapshot(state), _snapshot(ref_state)
+    _assert_envelope(mine["params"], theirs["params"], _params_envelope(1),
+                     "params")
+    _assert_envelope(mine["stats"], theirs["stats"], _stats_tol(1e-6),
+                     "batch_stats")
     with pytest.raises(ValueError, match="split evenly"):
         steps.make_train_step(model, model.config, state, grad_accum=3,
                               device="cpu")(batches[0], LR)
