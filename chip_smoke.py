@@ -259,9 +259,32 @@ Phases, in order; any failure exits non-zero and prints no result:
             launch (main again, a second process group): one
             logdir, written by rank 0 alone, the DBA equal on every rank,
             8 flash forwards and 8 merged backwards a rank a step, the
-            test CSVs.  Each kernel's row of the kernels line gives its
-            launches on these legs (launches_dp).  --dp-only runs the
-            device, build and dp phases alone (a call with several cards).
+            test CSVs.  dp rebuild: this script with --dp-rebuild as the
+            ranks and the one-process reference, started when the train
+            leg ends: RebuildTrainer(mesh=...) on the full-width
+            MambaFuser (modality_missing="image") in bf16, global batch 8,
+            3 steps, the heads, fusion model, head statistics and AdamW
+            state bit-equal across the ranks after every step (hashes), the
+            five losses equal and finite, 67 scan forwards and 67 backwards
+            a rank a step, each rank's step p50 beside the reference's at
+            the global batch; in f32 at one MambaBlock a stage (the heads'
+            dropout 0), rank 0's losses, heads' and fusion model's
+            gradients and head statistics against the reference's on the
+            whole batch, within DP_SHIFT_FACTOR times its own shift (never
+            below DP_REBUILD_FLOOR); beside them the planted-fault reading,
+            the contrastive term of rank 0's rows alone (a port without
+            the gather), which must lie outside the loss's bound.  dp
+            rebuild cli: python -m torch.distributed.run --nproc_per_node
+            <cards> running the rebuild CLI's main (this script with
+            --dp-rebuild-cli counts each step's launches) on the demo tree:
+            the full-width MambaFuser cut to --n_layer 2, random weights,
+            one epoch, then --Val 1 --load_model_dir on its logdir in the
+            same launch: one logdir written by rank 0 alone, the 5-way
+            files, the DBA equal on every rank, a finite --Val DBA, 19 scan
+            forwards and backwards a rank a step.  Each kernel's row of the
+            kernels line gives its launches on these legs (launches_dp).
+            --dp-only runs the device, build and dp phases alone (a call
+            with several cards).
 
 With --parent PATH, after the last phase, the flash forward, merged
 backward, split backward and each split kernel alone of the checkout at
@@ -494,6 +517,13 @@ DP_ORDERS = ("reversed", "rolled")
 DP_FLOOR = {"loss_rel": TRAIN_LOSS_RTOL, "grad_global_rel": TRAIN_GRAD_RTOL,
             "stats_worst": TRAIN_STATS_RTOL, "params_share": 0.01}
 DP_ONE_DEVICE_ATOL = 1e-3
+# the rebuild legs: the f32 step's floors (the rebuild phase's limits on
+# kernel against plain), and the rebuild CLI's depth (full widths)
+DP_REBUILD_FLOOR = {"loss_rel": REBUILD_LOSS_RTOL,
+                    "grad_global_rel": REBUILD_GRAD_RTOL,
+                    "stats_worst": TRAIN_STATS_RTOL}
+DP_REBUILD_CLI_LAYERS = 2
+REBUILD_LOSSES = ("loss", "trans", "contrast", "distance", "fusion")
 
 
 def fail(msg):
@@ -4002,10 +4032,27 @@ def free_port():
 def state_hash(model, ema):
     """sha256 over the bytes of every parameter, buffer and EMA tensor, in
     name order."""
+    return tensors_hash({**model.state_dict(),
+                         **{f"ema.{k}": v for k, v in ema.items()}})
+
+
+def rebuild_hash(trainer):
+    """sha256 over a RebuildTrainer's heads (parameters and statistics),
+    fusion model and AdamW state."""
+    tensors = {**{f"heads.{k}": v for k, v in
+                  trainer.heads.state_dict().items()},
+               **{f"fusion.{k}": v for k, v in
+                  trainer.fusion_model.state_dict().items()}}
+    for i, st in enumerate(trainer.state.optimizer.state.values()):
+        tensors.update({f"adam.{i}.{k}": v for k, v in st.items()})
+    return tensors_hash(tensors)
+
+
+def tensors_hash(tensors):
+    """sha256 over the names and bytes of ``tensors``, in name order."""
     import hashlib
     import torch
     h = hashlib.sha256()
-    tensors = {**model.state_dict(), **{f"ema.{k}": v for k, v in ema.items()}}
     for name in sorted(tensors):
         h.update(name.encode())
         h.update(tensors[name].detach().contiguous().reshape(-1).view(
@@ -4157,6 +4204,175 @@ def dp_cli_child(folder, test_dir, argv, test_argv):
     os.chdir(test_dir)
     return cli.main(test_argv + ["--load_model_path", os.path.join(
         folder, "log", run, "best_model")])
+
+
+def dp_rebuild_child(folder, rank, world, port, backend):
+    """A process of the dp phase's rebuild leg (``--dp-rebuild``): rank
+    ``rank`` of ``world`` in a ``backend`` group, or with world 1 the
+    reference, one process under a one-rank NCCL group.  Each runs the
+    full-width bf16 RebuildTrainer for DP_STEPS steps (the ranks on their
+    rows of the global batch, the reference on all of it; each step's
+    losses, ms, launches and state hash), then the f32 step at one block a
+    stage with the heads' dropout 0 (the reference through the scan kernel,
+    the plain scan and the rows in DP_ORDERS).  Rank 0 and the reference
+    save each f32 step's losses, gradients and head statistics; every f32
+    step also keeps the contrastive term of its own rows alone."""
+    import numpy as np
+    import torch
+    from deepsense6g_tii_tpu_torch.models.fuser import BeamFuser
+    from deepsense6g_tii_tpu_torch.ops import _build
+    from deepsense6g_tii_tpu_torch.parallel import distributed
+    from deepsense6g_tii_tpu_torch.parallel.mesh import make_mesh
+    from deepsense6g_tii_tpu_torch.rebuild import trainer as rtrainer
+    from deepsense6g_tii_tpu_torch.serve import mambafuser_config
+    from deepsense6g_tii_tpu_torch.utils.synth import make_synth_batch
+
+    rank, world = int(rank), int(world)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    distributed.initialize(f"127.0.0.1:{port}", world, rank, require=True,
+                           backend=backend)
+    mesh = make_mesh()
+    role = "ref" if world == 1 else f"rank{rank}"
+    out = {"role": role, "device": str(mesh.device),
+           "backend": torch.distributed.get_backend(), "world": world}
+
+    def rows(batch, path="scan"):
+        if world > 1:
+            order = np.arange(len(batch["image"]))[mesh.rows(len(
+                batch["image"]))]
+        else:
+            n = len(batch["image"])
+            order = {"reversed": np.arange(n)[::-1],
+                     "rolled": np.roll(np.arange(n), n // 2)}.get(
+                         path, np.arange(n))
+        return {k: torch.from_numpy(v[order]).to(mesh.device)
+                for k, v in batch.items()}
+
+    def make(cfg):
+        model = BeamFuser(cfg, device=mesh.device,
+                          generator=torch.Generator().manual_seed(0))
+        tr = rtrainer.RebuildTrainer(model, cfg, rtrainer.RebuildOptions(),
+                                     device=mesh.device, mesh=mesh)
+        tr.init_state()
+        return tr
+
+    # the flat all-reduce of the gradients and losses, timed on its own
+    # (synchronised before and after; ranks only)
+    real_reduce, reduce_ms = rtrainer._flat_all_reduce, []
+
+    def timed_reduce(tensors, group):
+        torch.cuda.synchronize(mesh.device)
+        t0 = time.perf_counter()
+        real_reduce(tensors, group)
+        torch.cuda.synchronize(mesh.device)
+        reduce_ms.append(1e3 * (time.perf_counter() - t0))
+
+    rtrainer._flat_all_reduce = timed_reduce
+    cfg = mambafuser_config(modality_missing="image")
+    batch = rows(make_synth_batch(cfg, DP_BATCH, seed=7))
+    tr, rec = make(cfg), []
+    for _ in range(DP_STEPS):
+        torch.cuda.synchronize(mesh.device)
+        _build.reset_launch_counts()
+        reduce_ms.clear()
+        t0 = time.perf_counter()
+        aux = tr.train_step(batch, TRAIN_LR, floats=True)   # one read-back
+        rec.append({"aux": aux, "ms": 1e3 * (time.perf_counter() - t0),
+                    "allreduce_ms": sum(reduce_ms),
+                    "launches": dict(_build.KERNEL_LAUNCHES),
+                    "hash": rebuild_hash(tr)})
+    out["bf16"] = rec
+    rtrainer._flat_all_reduce = real_reduce
+    del tr, batch
+    torch.cuda.empty_cache()
+
+    # f32, one MambaBlock a stage, the heads' dropout 0 (each rank draws
+    # its own masks); the contrastive terms also as a port without the
+    # gather computes them, from this process's rows alone
+    real, local = rtrainer.contrastive_loss, []
+
+    def recording(x1, x2, seq_len, temperature, group=None):
+        local.append(real(x1.detach(), x2.detach(), seq_len,
+                          temperature=temperature))
+        return real(x1, x2, seq_len, temperature=temperature, group=group)
+
+    rtrainer.contrastive_loss = recording
+    cfg = mambafuser_config(modality_missing="image", compute_dtype="float32",
+                            n_layer=1)
+    batch = make_synth_batch(cfg, DP_BATCH, seed=8)
+    for path in (("scan",) if world > 1 else
+                 ("scan", "plain") + DP_ORDERS):
+        tr = make(cfg.replace(use_pallas_scan=path != "plain"))
+        tr.heads.feat_trans_l1.p = 0.0
+        local.clear()
+        _build.reset_launch_counts()
+        aux = tr.train_step(rows(batch, path), TRAIN_LR, floats=True)
+        out[f"f32_{path}"] = {
+            "aux": aux, "launches": dict(_build.KERNEL_LAUNCHES),
+            "hash": rebuild_hash(tr),
+            "local_contrast": float(sum(local) / len(local))}
+        if rank == 0:
+            named = (list(tr.heads.named_parameters(prefix="heads"))
+                     + list(tr.fusion_model.named_parameters(
+                         prefix="fusion")))
+            torch.save({"aux": aux,
+                        "grads": {k: p.grad.detach().cpu() for k, p in named},
+                        "stats": {k: b.detach().cpu() for k, b in
+                                  tr.heads.named_buffers()}},
+                       os.path.join(folder, f"{role}_f32_{path}.pt"))
+        del tr
+        torch.cuda.empty_cache()
+    rtrainer.contrastive_loss = real
+    distributed.barrier("dp-rebuild")
+    with open(os.path.join(folder, f"{role}.json"), "w") as f:
+        json.dump(out, f)
+    distributed.shutdown()
+    return 0
+
+
+def dp_rebuild_cli_child(folder, argv, val_argv):
+    """A rank of the dp phase's rebuild CLI leg (``--dp-rebuild-cli``, under
+    torch.distributed.run): the rebuild CLI's main on ``argv`` (every train
+    step's launches counted, every DBA it computes kept), then main on
+    ``val_argv`` in the same process group (the first main's shutdown held
+    back, as ``dp_cli_child`` does); writes ``folder``/rank<RANK>.json."""
+    from deepsense6g_tii_tpu_torch.cli import rebuild as rcli
+    from deepsense6g_tii_tpu_torch.parallel import distributed
+    from deepsense6g_tii_tpu_torch.rebuild.trainer import RebuildTrainer
+    from deepsense6g_tii_tpu_torch.train import metrics
+
+    counts, dbas = [], []
+    real_step, real_dba = RebuildTrainer.train_step, metrics.compute_dba_score
+
+    def counting_step(self, *a, **k):
+        res, c = counted(lambda: real_step(self, *a, **k))
+        counts.append(c)
+        return res
+
+    def keeping_dba(*a, **k):
+        d = real_dba(*a, **k)
+        dbas.append(float(d))
+        return d
+
+    RebuildTrainer.train_step = counting_step
+    metrics.compute_dba_score = keeping_dba
+    shutdown, distributed.shutdown = distributed.shutdown, lambda: None
+    try:
+        check(rcli.main(argv) == 0, "dp rebuild cli: main did not return 0")
+        n_train = len(dbas)
+        distributed.shutdown = shutdown
+        check(rcli.main(val_argv) == 0,
+              "dp rebuild cli --Val: main did not return 0")
+    finally:
+        RebuildTrainer.train_step, metrics.compute_dba_score = (real_step,
+                                                                real_dba)
+        distributed.shutdown = shutdown
+    with open(os.path.join(folder, f"rank{os.environ['RANK']}.json"),
+              "w") as f:
+        json.dump({"launches": counts, "dba": {"train": dbas[:n_train],
+                                               "val": dbas[n_train:]}}, f)
+    return 0
 
 
 def replica_reference(pred, model, arrays):
@@ -4316,6 +4532,8 @@ def phase_dp(card):
     os.makedirs(os.path.join(base, "train"))
     os.makedirs(os.path.join(base, "cli_run"))
     os.makedirs(os.path.join(base, "cli_test"))
+    os.makedirs(os.path.join(base, "rebuild"))
+    os.makedirs(os.path.join(base, "rebuild_cli"))
     world = max(2, n_cards)
     backend = "nccl" if n_cards >= 2 else "gloo"
     devices = ([f"{DEVICE}:{i}" for i in range(n_cards)] if n_cards >= 2
@@ -4349,17 +4567,45 @@ def phase_dp(card):
 
     cli_run = os.path.join(base, "cli_run")
     cli_test_dir = os.path.join(base, "cli_test")
+    # dp rebuild cli: one epoch of the MambaFuser at --n_layer 2 (random
+    # weights), then --Val 1 on its logdir
+    rb_cli_dir = os.path.join(base, "rebuild_cli")
+    rb_logdir = os.path.join(rb_cli_dir, "run")
+    rb_common = ["-s", "lidar", "radar", "-t", "image", "--data_root", root,
+                 "--n_layer", str(DP_REBUILD_CLI_LAYERS), "--batch_size",
+                 str(CLI_BATCH), "--num_workers", "4"]
     children = [train, Children(
         [[sys.executable, "-m", "torch.distributed.run", "--standalone",
           "--nproc_per_node", str(n_cards), me, "--dp-cli", cli_run,
           cli_test_dir, "--", *cli_common, "--epochs", "1", "--",
-          *cli_common, "--Test", "1"]], cli_run, "cli", cwd=cli_run)]
+          *cli_common, "--Test", "1"]], cli_run, "cli", cwd=cli_run),
+        Children([[sys.executable, "-m", "torch.distributed.run",
+                   "--standalone", "--nproc_per_node", str(n_cards), me,
+                   "--dp-rebuild-cli", rb_cli_dir, "--", *rb_common,
+                   "--logdir", rb_logdir, "--epochs", "1", "--", *rb_common,
+                   "--logdir", os.path.join(rb_cli_dir, "val"), "--Val", "1",
+                   "--load_model_dir", rb_logdir]], rb_cli_dir,
+                 "rebuild_cli", cwd=rb_cli_dir)]
+    rb_folder = os.path.join(base, "rebuild")
     times = {}
     try:
         # dp serve in this process meanwhile
         serve_out = dp_serve(card, Mesh(devices))
         times["serve_s"] = time.perf_counter() - t_start
-        for name, c in zip(("train_s", "cli_s"), children):
+        train.wait()
+        times["train_s"] = time.perf_counter() - t_start
+        # dp rebuild: the ranks and the reference, once the train leg has
+        # left the card's memory to them
+        rb_port, rb_ref_port = free_port(), free_port()
+        children.append(Children(
+            [[sys.executable, me, "--dp-rebuild", rb_folder, str(r),
+              str(world), str(rb_port), backend] for r in range(world)]
+            + [[sys.executable, me, "--dp-rebuild", rb_folder, "0", "1",
+                str(rb_ref_port), "nccl"]], rb_folder, "rebuild",
+            env=[{"LOCAL_RANK": str(r if n_cards >= 2 else 0)}
+                 for r in range(world)] + [{"LOCAL_RANK": "0"}]))
+        for name, c in zip(("cli_s", "rebuild_cli_s", "rebuild_s"),
+                           children[1:]):
             c.wait()
             times[name] = time.perf_counter() - t_start
     finally:
@@ -4462,12 +4708,173 @@ def phase_dp(card):
                "launches_per_rank_step": cli_ranks[0]["launches"][0],
                "dba": cli_ranks[0]["dba"], "train_loss": rec["train_loss"]}
     print(f"dp cli on {card}: " + json.dumps(cli_out))
+    rebuild_out = dp_rebuild_readings(card, rb_folder, world, one_block)
+    rebuild_cli_out = dp_rebuild_cli_readings(card, rb_cli_dir, rb_logdir,
+                                              n_cards, n_train)
     seconds = time.perf_counter() - t_start
     # each leg's end, seconds from the phase's start (the legs overlap)
     print(f"dp on {card}: {seconds:.1f} s; " + json.dumps(times))
-    shutil.rmtree(folder, ignore_errors=True)     # the saved f32 steps
+    for d in (folder, rb_folder, rb_cli_dir):   # f32 steps, checkpoints
+        shutil.rmtree(d, ignore_errors=True)
     return {"serve": serve_out, "train": train_out, "cli": cli_out,
+            "rebuild": rebuild_out, "rebuild_cli": rebuild_cli_out,
             "seconds": seconds}
+
+
+def rebuild_gap(a, b):
+    """f32_gaps of two saved f32 rebuild steps (the total loss, the heads'
+    and fusion model's gradients, the heads' statistics), with the largest
+    relative gap of the five losses as ``loss_rel``."""
+    gap = f32_gaps(*((s["aux"]["loss"], s["grads"], s["stats"])
+                     for s in (a, b)))
+    gap["losses_rel"] = {k: abs(a["aux"][k] - b["aux"][k]) / abs(b["aux"][k])
+                         for k in REBUILD_LOSSES}
+    gap["loss_rel"] = max(gap["losses_rel"].values())
+    return gap
+
+
+def dp_rebuild_readings(card, folder, world, one_block):
+    """The dp rebuild leg's checks: the ranks bit-equal after every bf16
+    step, their losses equal and finite, their launches; the f32 step of
+    rank 0 against the reference's, each gap within DP_SHIFT_FACTOR times
+    the largest of the reference's shifts (never below DP_REBUILD_FLOOR);
+    and the contrastive term of rank 0's rows alone outside the losses'
+    bound.  Every reading is printed before any is held to its bound."""
+    import numpy as np
+    import torch
+    from deepsense6g_tii_tpu_torch.ops import selective_scan as ss
+
+    ranks = []
+    for r in range(world):
+        with open(os.path.join(folder, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    with open(os.path.join(folder, "ref.json")) as f:
+        ref = json.load(f)
+    n_scan = sum(SCAN_LAUNCHES.values())
+    want = {ss.KERNEL: n_scan, ss.KERNEL_BWD: n_scan}
+    for i in range(DP_STEPS):
+        steps = [r["bf16"][i] for r in ranks]
+        check(len({s["hash"] for s in steps}) == 1, f"dp rebuild bf16 step "
+              f"{i}: the ranks' heads, fusion model, statistics or AdamW "
+              f"state differ")
+        check(all(s["aux"] == steps[0]["aux"] for s in steps)
+              and np.isfinite(list(steps[0]["aux"].values())).all(),
+              f"dp rebuild bf16 step {i}: losses "
+              f"{[s['aux'] for s in steps]}")
+        for s in steps + [ref["bf16"][i]]:
+            check(s["launches"] == want, f"dp rebuild bf16 step {i}: "
+                  f"launches {s['launches']}, expected {want}")
+
+    def p50(rec):
+        return float(np.percentile([s["ms"] for s in rec[1:]], 50))
+
+    out = {"world": world, "backend": ranks[0]["backend"],
+           "devices": [r["device"] for r in ranks],
+           "ref": {"backend": ref["backend"], "device": ref["device"]},
+           "global_batch": DP_BATCH,
+           "bf16_losses": [s["aux"] for s in ranks[0]["bf16"]],
+           "launches_per_rank_step": ranks[0]["bf16"][0]["launches"],
+           "step_ms_p50_per_rank": [p50(r["bf16"]) for r in ranks],
+           "ref_step_ms_p50": p50(ref["bf16"]),
+           # the gradients' flat all-reduce within a rank's step
+           "allreduce_ms_p50_per_rank": [float(np.percentile(
+               [s["allreduce_ms"] for s in r["bf16"][1:]], 50))
+               for r in ranks]}
+    check(len({r["f32_scan"]["hash"] for r in ranks}) == 1,
+          "dp rebuild f32: the ranks' state differs")
+    for r in ranks + [ref]:
+        check(r["f32_scan"]["launches"] == one_block, f"dp rebuild f32 "
+              f"{r['role']}: launches {r['f32_scan']['launches']}")
+    check(ref["f32_plain"]["launches"] == {},
+          "dp rebuild f32: the plain scan launched a kernel")
+    saved = {f"{who}_{path}": torch.load(os.path.join(
+        folder, f"{who}_f32_{path}.pt"), weights_only=True)
+        for who, path in (("rank0", "scan"), ("ref", "scan"),
+                          ("ref", "plain"))
+        + tuple(("ref", o) for o in DP_ORDERS)}
+    gap = rebuild_gap(saved["rank0_scan"], saved["ref_scan"])
+    shifts = {"plain_shift": rebuild_gap(saved["ref_scan"],
+                                         saved["ref_plain"])}
+    for o in DP_ORDERS:
+        shifts[f"{o}_shift"] = rebuild_gap(saved["ref_scan"],
+                                           saved[f"ref_{o}"])
+    f32 = {k: {"gap": gap[k], **{name: sh[k] for name, sh in
+                                 shifts.items()},
+               "bound": max(DP_SHIFT_FACTOR * max(sh[k] for sh in
+                                                  shifts.values()), floor)}
+           for k, floor in DP_REBUILD_FLOOR.items()}
+    f32["losses"] = {"rank0": saved["rank0_scan"]["aux"],
+                     "ref": saved["ref_scan"]["aux"]}
+    f32["losses_rel"] = gap["losses_rel"]
+    f32["grad_worst"] = [gap["grad_worst_name"], gap["grad_worst"]]
+    # the planted fault: NT-Xent over rank 0's rows alone, as a port
+    # without the gather computes it
+    local = ranks[0]["f32_scan"]["local_contrast"]
+    ref_c = saved["ref_scan"]["aux"]["contrast"]
+    f32["planted_local_contrast"] = {
+        "rank0_rows_alone": local, "gathered": saved["rank0_scan"]["aux"][
+            "contrast"], "ref": ref_c, "rel": abs(local - ref_c) / abs(ref_c),
+        "bound": f32["loss_rel"]["bound"]}
+    out["f32"] = f32
+    print(f"dp rebuild on {card}: " + json.dumps(out))
+    for k in DP_REBUILD_FLOOR:
+        check(f32[k]["gap"] <= f32[k]["bound"], f"dp rebuild f32: {k} "
+              f"{f32[k]['gap']:.3g} from the one-process step, bound "
+              f"{f32[k]['bound']:.3g} ({f32[k]})")
+    planted = f32["planted_local_contrast"]
+    check(planted["rel"] > planted["bound"], f"dp rebuild: the contrastive "
+          f"term of rank 0's rows alone lies within the bound ({planted}): "
+          f"the leg would not see a missing gather")
+    return out
+
+
+def dp_rebuild_cli_readings(card, folder, logdir, n_cards, n_train):
+    """The dp rebuild cli leg's checks: the launches of every rank's step,
+    every rank's DBA equal, one logdir written by rank 0 alone with the
+    5-way files, and a finite --Val DBA."""
+    import numpy as np
+    from deepsense6g_tii_tpu_torch.ops import selective_scan as ss
+    from deepsense6g_tii_tpu_torch.rebuild.trainer import HEAD_KEYS
+
+    ranks = []
+    for r in range(n_cards):
+        with open(os.path.join(folder, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    n_steps = -(-(n_train // n_cards) // (CLI_BATCH // n_cards))
+    n_scan = 4 * 2 * DP_REBUILD_CLI_LAYERS + 3
+    want = {ss.KERNEL: n_scan, ss.KERNEL_BWD: n_scan}
+    for r, c in enumerate(ranks):
+        check(len(c["launches"]) == n_steps
+              and all(x == want for x in c["launches"]),
+              f"dp rebuild cli rank {r}: launches {c['launches']}, expected "
+              f"{n_steps} steps of {want}")
+        check(c["dba"] == ranks[0]["dba"] and ranks[0]["dba"]["val"],
+              f"dp rebuild cli: rank {r}'s DBA {c['dba']} against rank 0's "
+              f"{ranks[0]['dba']}")
+    files = os.listdir(logdir)
+    with open(os.path.join(logdir, "scalars.jsonl")) as f:
+        tags = [json.loads(line)["tag"] for line in f]
+    needed = [f"{p}_{k}.pt" for p in ("best", "final")
+              for k in HEAD_KEYS + ("fusion_model",)] + ["best_optim.pt"]
+    check(tags.count("curr_loss_train") == 1
+          and sum(f.startswith("events.out") for f in files) == 1
+          and not [f for f in files if f.endswith(".tmp")]
+          and all(f in files for f in needed),
+          f"dp rebuild cli: logdir {files}, "
+          f"{tags.count('curr_loss_train')} train loss lines")
+    with open(os.path.join(logdir, "recent.log")) as f:
+        rec = json.load(f)
+    val_dba = ranks[0]["dba"]["val"][-1]
+    check(rec["epoch"] == 1 and np.isfinite(rec["train_loss"]).all()
+          and np.isfinite(rec["DBA"]).all() and 0.0 <= val_dba <= 1.0,
+          f"dp rebuild cli: run record {rec}, --Val DBA {val_dba}")
+    out = {"ranks": n_cards, "n_layer": DP_REBUILD_CLI_LAYERS,
+           "steps_per_rank": n_steps,
+           "launches_per_rank_step": ranks[0]["launches"][0],
+           "dba": ranks[0]["dba"], "val_dba": val_dba,
+           "train_loss": rec["train_loss"]}
+    print(f"dp rebuild cli on {card}: " + json.dumps(out))
+    return out
 
 
 # each phase's seconds, for the summary line: outermost calls only (a
@@ -4509,6 +4916,8 @@ def main(argv=None):
                     help=argparse.SUPPRESS)    # the export phase's process
     ap.add_argument("--dp-train", nargs=5, help=argparse.SUPPRESS,
                     metavar=("DIR", "RANK", "WORLD", "PORT", "BACKEND"))
+    ap.add_argument("--dp-rebuild", nargs=5, help=argparse.SUPPRESS,
+                    metavar=("DIR", "RANK", "WORLD", "PORT", "BACKEND"))
     ap.add_argument("--dp-only", action="store_true",
                     help="only the device, build and dp phases (for a "
                          "call with several cards)")
@@ -4517,11 +4926,17 @@ def main(argv=None):
         i = argv.index("--")
         j = argv.index("--", i + 1)
         return dp_cli_child(argv[1], argv[2], argv[i + 1:j], argv[j + 1:])
+    if argv[:1] == ["--dp-rebuild-cli"]:    # a rank of the rebuild CLI leg
+        i = argv.index("--")
+        j = argv.index("--", i + 1)
+        return dp_rebuild_cli_child(argv[1], argv[i + 1:j], argv[j + 1:])
     args = ap.parse_args(argv)
     if args.serve_exported:
         return serve_exported(*args.serve_exported)
     if args.dp_train:
         return dp_train_child(*args.dp_train)
+    if args.dp_rebuild:
+        return dp_rebuild_child(*args.dp_rebuild)
     t_start = time.perf_counter()
     card, sfu_rate, fmul_rate = phase_device()
     phase_build()
@@ -4762,14 +5177,19 @@ def main(argv=None):
     def launches_dp(name):
         """Launches a replica a request, or a rank a step, on the dp
         phase's legs: serving over the mesh (MambaFuser and GPT
-        TransFuser), the bf16 train leg and the train CLI's GPT TransFuser
-        at --n_layer 2 under torch.distributed.run."""
+        TransFuser), the bf16 train leg, the train CLI's GPT TransFuser
+        at --n_layer 2 under torch.distributed.run, the bf16 rebuild leg
+        and the rebuild CLI's MambaFuser at --n_layer 2."""
         return {"serve_mamba": dp["serve"]["mamba"][
                     "launches_per_replica"].get(name, 0),
                 "serve_gpt": dp["serve"]["gpt"][
                     "launches_per_replica"].get(name, 0),
                 "train": dp["train"]["launches_per_rank_step"].get(name, 0),
-                "cli": dp["cli"]["launches_per_rank_step"].get(name, 0)}
+                "cli": dp["cli"]["launches_per_rank_step"].get(name, 0),
+                "rebuild": dp["rebuild"]["launches_per_rank_step"].get(
+                    name, 0),
+                "rebuild_cli": dp["rebuild_cli"][
+                    "launches_per_rank_step"].get(name, 0)}
 
     def launches_export(name):
         """Launches a forward of the exported serving artifacts, GPT

@@ -11,11 +11,30 @@ overall DBA) and keeps the 5-way best/final checkpoints
 (``cli/rebuild_engine_io.py``).  ``--Val 1 [--load_model_dir DIR]``
 validates only; ``--finetune 1`` trains without validating or saving.
 
+Under a launcher it trains data-parallel, one process per GPU (the JAX
+rebuild CLI always trains over every local chip, ``cli/rebuild.py:
+131-135``):
+
+    python -m torch.distributed.run --standalone --nproc_per_node N \
+        -m deepsense6g_tii_tpu_torch.cli.rebuild -s lidar radar -t image \
+        --data_root ROOT --batch_size 8 ...
+
+The CLI joins the process group that its environment describes
+(``parallel/distributed.py::initialize``: the launcher's ``RANK``,
+``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``, or the JAX package's
+``DEEPSENSE_*`` variables; without them it trains in one process, as the
+JAX CLI on one chip).  Each rank holds ``cuda:LOCAL_RANK`` and
+``--batch_size / N`` rows of every step (``--batch_size`` stays the global
+batch and must divide by N) from its shard of the training set
+(``data/dataset.py::shard_for_process``), and ``RebuildTrainer(mesh=...)``
+computes the global batch's step; validation runs the full split on every
+rank; rank 0's logdir is every rank's, and only rank 0 writes it.
+
 ``--device`` defaults to ``cuda`` and raises without CUDA; ``--device cpu``
-runs the plain PyTorch paths.  The fusion model is the MambaFuser of the
-config's defaults, random from seed 100 unless ``--fusion_model_path``
-names a checkpoint: the port's ``.pt``, a JAX ``.msgpack`` or a reference
-``.pth`` (``serve.read_state_dict``).
+runs the plain PyTorch paths (on gloo under a launcher). The fusion model
+is the MambaFuser of the config's defaults, random from seed 100 unless
+``--fusion_model_path`` names a checkpoint: the port's ``.pt``, a JAX
+``.msgpack`` or a reference ``.pth`` (``serve.read_state_dict``).
 """
 
 from __future__ import annotations
@@ -89,12 +108,33 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
 
+    from ..parallel import distributed
+    from ..utils.device import resolve_device
+
+    resolve_device(args.device)        # raises before any group is joined
+    if not distributed.initialize():
+        return run(args)
+    print("distributed:", distributed.process_info())
+    try:
+        code = run(args)
+        distributed.barrier("done")
+        return code
+    finally:
+        distributed.shutdown()
+
+
+def run(args) -> int:
+    """The CLI's work on parsed ``args``, in the process group when one was
+    joined."""
     import torch
 
     from ..config import SCENARIOS, GlobalConfig
-    from ..data.dataset import BeamDataset, ConcatDataset, random_split
+    from ..data.dataset import (BeamDataset, ConcatDataset, random_split,
+                                shard_for_process)
     from ..data.loader import DataLoader
     from ..models.fuser import BeamFuser
+    from ..parallel import distributed
+    from ..parallel.mesh import make_mesh
     from ..rebuild.trainer import RebuildOptions, RebuildTrainer
     from ..serve import read_state_dict
     from ..train import checkpoints as ckpt
@@ -108,6 +148,18 @@ def main(argv=None) -> int:
     logdir = args.logdir
     if logdir == "log":
         logdir = os.path.join(logdir, args.id)
+    mesh = None
+    if torch.distributed.is_initialized():
+        if device.type == "cuda":
+            device = torch.device("cuda", distributed.local_rank())
+        mesh = make_mesh(device=device)
+        # the default --id is a per-process timestamp: pin every rank to
+        # rank 0's logdir
+        logdir = distributed.broadcast_str(logdir)
+    world = 1 if mesh is None else mesh.world_size
+    if args.batch_size % world:
+        raise ValueError(f"--batch_size {args.batch_size} must be divisible "
+                         f"by the process count {world}")
     os.makedirs(logdir, exist_ok=True)
 
     cfg = GlobalConfig(
@@ -130,7 +182,10 @@ def main(argv=None) -> int:
     full = ConcatDataset([development, adaptation])
     n_train = int(0.9 * len(full))
     train_set, val_set = random_split(full, [n_train, len(full) - n_train])
-    train_loader = DataLoader(train_set, args.batch_size, shuffle=True,
+    # --batch_size is the global batch, split over the ranks; validation
+    # feeds the full batch of the full split to every rank
+    train_loader = DataLoader(shard_for_process(train_set),
+                              args.batch_size // world, shuffle=True,
                               num_workers=args.num_workers)
     val_loader = DataLoader(val_set, args.batch_size,
                             num_workers=args.num_workers)
@@ -146,11 +201,19 @@ def main(argv=None) -> int:
         alpha_trans=args.alpha_trans, alpha_contrast=args.alpha_contrast,
         alpha_distance=args.alpha_distance, alpha_fusion=args.alpha_fusion,
         temp=args.temp, lr=args.lr)
-    trainer = RebuildTrainer(model, cfg, opts, device=device)
+    trainer = RebuildTrainer(model, cfg, opts, device=device, mesh=mesh)
     trainer.init_state()
 
-    logger = ckpt.ScalarLogger(logdir)
-    ckpt.write_args(logdir, vars(args))
+    lead = distributed.process_index() == 0
+    # rank 0 alone logs: the other ranks' lines would double the stream
+    logger = ckpt.ScalarLogger(logdir) if lead else ckpt.NullLogger()
+    ckpt.write_args(logdir, vars(args))         # rank 0's
+
+    def load_written(folder):
+        """Loads a logdir's best files once rank 0's writes have landed."""
+        ckpt.flush()
+        distributed.barrier("load_rebuild_state")
+        load_rebuild_state(folder, trainer, best=True)
     bestval, best_epoch = 0.0, 0
     train_losses, val_losses, dbas = [], [], []
 
@@ -178,7 +241,7 @@ def main(argv=None) -> int:
     if args.Val:
         # eval only: rebuilt-feature injection with loaded heads
         if args.load_model_dir:
-            load_rebuild_state(args.load_model_dir, trainer, best=True)
+            load_written(args.load_model_dir)
         dba, _ = run_validation()
         print("Val DBA:", dba)
         print("Val finish")
@@ -222,7 +285,7 @@ def main(argv=None) -> int:
         if save_best:
             print("====== Overwrote best model ======>")
         elif args.load_previous_best:
-            load_rebuild_state(logdir, trainer, best=True)
+            load_written(logdir)
             print("====== Load the previous best model ======>")
     logger.close()
     return 0

@@ -17,6 +17,10 @@ It also reads a JAX logdir: a module with no ``.pt`` file is read from the
 ``models/weights.py::from_jax_variables``).  optax's ``best_optim.msgpack``
 has no torch counterpart: the optimizer state then starts fresh, and the
 loader says so in one line.
+
+In a process group only rank 0 writes (``train/checkpoints.py``); every
+rank reads the same files, after the barrier that the rebuild CLI holds
+before a read, so the ranks stay bit-equal.
 """
 
 from __future__ import annotations

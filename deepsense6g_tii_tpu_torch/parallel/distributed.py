@@ -19,7 +19,9 @@ holds its own card.
 ``barrier``, ``broadcast_str`` and ``process_info`` keep the JAX package's
 names and keys.  ``all_reduce_sum`` is differentiable: its backward
 all-reduces the incoming gradient (BatchNorm's global statistics,
-``models/resnet.py``).
+``models/resnet.py``).  So is ``all_gather_rows``, the ranks' rows
+concatenated in rank order (the rebuild step's NT-Xent over the global
+batch, ``rebuild/losses.py``).
 """
 
 from __future__ import annotations
@@ -165,3 +167,44 @@ class _AllReduceSum(torch.autograd.Function):
 def all_reduce_sum(x: torch.Tensor, group=None) -> torch.Tensor:
     """The sum of ``x`` over the group's ranks, differentiable."""
     return _AllReduceSum.apply(x, group)
+
+
+class _AllGatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        world = dist.get_world_size(group)
+        rank = dist.get_rank(group)
+        # every rank's row count, so that every rank sees the same counts
+        # and all of them raise together: none is left in a collective
+        counts = torch.zeros(world, dtype=torch.float32, device=x.device)
+        counts[rank] = x.shape[0]
+        dist.all_reduce(counts, group=group)
+        if bool((counts != counts[0]).any()):
+            raise ValueError(
+                f"all_gather_rows: the ranks hold unequal row counts "
+                f"{[int(c) for c in counts.tolist()]}")
+        b = x.shape[0]
+        # gloo gathers no CUDA tensor: an all-reduce of a zero buffer in
+        # which each rank writes its own slot, which adds zeros (exact)
+        out = x.new_zeros((world * b,) + tuple(x.shape[1:]))
+        out[rank * b:(rank + 1) * b] = x
+        dist.all_reduce(out, group=group)
+        ctx.group, ctx.rows = group, slice(rank * b, (rank + 1) * b)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        # every rank's loss reads every slot: this rank's rows take the sum
+        # of the ranks' gradients of its slot
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad[ctx.rows], None
+
+
+def all_gather_rows(x: torch.Tensor, group=None) -> torch.Tensor:
+    """The group's (b, ...) tensors concatenated along the rows in rank
+    order, (world·b, ...), differentiable: the backward sums the incoming
+    gradient over the group and returns this rank's slot.  Unequal row
+    counts raise ``ValueError`` on every rank.  One all-reduce of the
+    counts and one of the rows (both backends, CUDA or CPU tensors)."""
+    return _AllGatherRows.apply(x, group)

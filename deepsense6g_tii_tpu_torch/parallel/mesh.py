@@ -101,8 +101,9 @@ def replicate(module: nn.Module, mesh: Optional[Mesh]) -> None:
 
 
 def sync_batchnorm(model: nn.Module, mesh: Optional[Mesh]) -> None:
-    """Takes the train-mode statistics of every backbone BatchNorm of
-    ``model`` over ``mesh``'s group (local again without one)."""
+    """Takes the train-mode statistics of every BatchNorm of ``model``
+    (the backbones', the rebuild heads') over ``mesh``'s group (local again
+    without one)."""
     from ..models.resnet import BatchNorm
     group = mesh.group if mesh is not None and mesh.world_size > 1 else None
     for m in model.modules():

@@ -11,6 +11,10 @@ head leaf by leaf.
 The heads compute in f32 whatever the features' dtype: flax's ``Dense``
 with ``dtype=None`` promotes bf16 features and f32 kernels to f32.  Their
 BatchNorms take flax's default momentum, 0.99 (the backbones' is 0.9).
+They are ``models/resnet.py::BatchNorm``: with ``.group`` set (by
+``parallel/mesh.py::sync_batchnorm``, as the data-parallel
+``RebuildTrainer`` does) their train-mode statistics span the process
+group's rows, the global batch's as under JAX's mesh.
 """
 
 from __future__ import annotations

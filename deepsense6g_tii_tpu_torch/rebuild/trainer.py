@@ -30,13 +30,44 @@ Randomness.  Step s draws the heads' dropout from a generator on the
 model's device seeded by ``SeedSequence([seed, s])`` and, for
 ``modality_missing_type="randlike"``, the substitute noise from one seeded
 by ``SeedSequence([seed, s + 2])``; eval batch i of step s from
-``SeedSequence([seed, s, i])``.  JAX's random bits cannot be matched.
+``SeedSequence([seed, s, i])``.  Over a process group the two train-step
+generators take the rank as a last word (``[seed, s, rank]``, ``[seed,
+s + 2, rank]``), as ``train/steps.py::_Generators`` does: the same masks
+on every rank's rows would correlate them.  JAX's random bits cannot be
+matched.
 
-Not in the port yet: ``mesh``, data-parallel rebuild training, whose
-NT-Xent similarity couples the batch and needs an all-gather of the
-embeddings with autograd (ROADMAP.md Queue 1 item 7's remainder; the beam
-model's data parallelism is ``parallel/``); :meth:`RebuildTrainer.shard`
-moves a batch to the device.
+Data parallelism (``mesh``; JAX ``RebuildTrainer(mesh=...)``, which the
+JAX rebuild CLI always passes).  With a rank's share of a process group
+(``parallel.mesh.make_mesh()`` after ``parallel.distributed.initialize``;
+one process per GPU), :meth:`RebuildTrainer.train_step` takes this rank's
+rows of the global batch, the contiguous block ``Mesh.rows`` names, and
+computes JAX's step on the global batch, whose NT-Xent similarity and
+head BatchNorm statistics couple every row:
+
+* :meth:`init_state` broadcasts rank 0's heads and fusion model
+  (``parallel.mesh.replicate``) before it copies the frozen stem+stage1;
+* the heads' BatchNorms take their statistics over the group
+  (``parallel.mesh.sync_batchnorm``; ``models/resnet.py``);
+* each loss term is this rank's share of the global batch's mean
+  (``rebuild/losses.py``; the focal loss over the global row count), and
+  NT-Xent gathers the ranks' normalised embeddings with autograd
+  (``parallel.distributed.all_gather_rows``), so that the backward of the
+  gather hands each rank the gradient of the global loss with respect to
+  its rows;
+* after the backward, one all-reduce through a flat buffer
+  (``train/steps.py::_flat_all_reduce``) sums the gradients, the zero ones
+  of unused parameters included, and the five loss terms; the two-group
+  AdamW then steps on the same numbers on every rank, which keeps the
+  ranks' heads, fusion model, head statistics and optimizer state
+  bit-equal.
+
+The eval path (:meth:`rebuild_features`, :meth:`eval_step`) runs on the
+rows it is given with no collective: BatchNorm takes running statistics
+there.  JAX's ``shard`` replicates a batch whose rows do not divide over
+the devices; the port has no counterpart, since a rank never holds the
+global batch, and :meth:`RebuildTrainer.shard` moves this rank's rows to
+its device.  The ranks must hold equal row counts in a train step (the
+gather raises on every rank otherwise).
 """
 
 from __future__ import annotations
@@ -52,8 +83,9 @@ from torch import nn
 
 from ..config import GlobalConfig
 from ..models.fuser import init_weights
+from ..parallel.mesh import Mesh, replicate, sync_batchnorm
 from ..train.losses import focal_loss
-from ..train.steps import _to_device
+from ..train.steps import _flat_all_reduce, _to_device
 from ..utils.device import resolve_device
 from .heads import FeatureTrans, ProjectHead
 from .losses import contrastive_loss, distance_loss, translation_loss
@@ -150,33 +182,53 @@ class RebuildTrainer:
     ``modality_missing`` = the target) and runs the rebuild train, rebuild
     and eval steps on ``device``.  ``device="cuda"`` (the default) raises
     without CUDA; tests pass ``device="cpu"``.  The heads are initialised
-    from ``opts.seed`` (the JAX package's initialisers, untruncated)."""
+    from ``opts.seed`` (the JAX package's initialisers, untruncated).
+    ``mesh``: a rank's share of a process group (its device is
+    ``device``), which trains data-parallel (the module's docstring);
+    ``None`` or a one-rank group, a single process."""
 
     def __init__(self, fusion_model: nn.Module, cfg: GlobalConfig,
-                 opts: RebuildOptions, device="cuda"):
+                 opts: RebuildOptions, device="cuda",
+                 mesh: Optional[Mesh] = None):
         if cfg.modality_missing != opts.target_domain:
             raise ValueError(
                 "config.modality_missing must equal the rebuild target "
                 f"({opts.target_domain!r}) so the encoder injects the "
                 "rebuilt features")
+        if mesh is not None and len(mesh.devices) != 1:
+            raise ValueError(
+                f"the rebuild trainer trains on one device a rank; a mesh "
+                f"of {len(mesh.devices)} local devices is a serving mesh: "
+                f"start a rank a device (torch.distributed.run)")
         self.device = resolve_device(device)
         self.fusion_model = fusion_model.to(self.device)
         self.cfg = cfg
         self.opts = opts
+        self.mesh = mesh
+        self.group = (mesh.group if mesh is not None and mesh.world_size > 1
+                      else None)
+        # the train step's generators take the rank as a last word
+        self._rank = () if self.group is None else (mesh.rank,)
         self.heads = RebuildHeads(opts.source_domain)
         init_weights(self.heads, torch.Generator().manual_seed(opts.seed))
         self.heads.to(self.device)
+        sync_batchnorm(self.heads, mesh)
         self.state: Optional[RebuildState] = None
 
     # -- device placement and state ------------------------------------------
 
     def shard(self, batch) -> Dict[str, torch.Tensor]:
-        """A host batch's tensors on the device (scenario names dropped)."""
+        """A host batch's tensors on the device (scenario names dropped):
+        over a mesh, this rank's rows as they are."""
         return _to_device(batch, self.device)
 
     def init_state(self) -> RebuildState:
         """The optimizer, the step and the frozen stem+stage1 copies, taken
-        from the fusion model's current weights and statistics."""
+        from the fusion model's current weights and statistics; over a
+        group, rank 0's heads and fusion model first."""
+        if self.group is not None:
+            replicate(self.heads, self.mesh)
+            replicate(self.fusion_model, self.mesh)
         enc = self.fusion_model.encoder
         frozen = nn.ModuleList(_Stage1(getattr(enc, name))
                                for name in ENCODERS)
@@ -222,48 +274,61 @@ class RebuildTrainer:
         """One step at the heads' learning rate ``lr``.  Returns the total
         ``loss`` and the ``trans``, ``contrast``, ``distance`` and
         ``fusion`` terms as 0-d tensors on the device, or as floats (one
-        read-back) with ``floats``."""
-        st, opts, cfg = self._require_state(), self.opts, self.cfg
+        read-back) with ``floats``; over a group, ``batch`` is this rank's
+        rows and the losses are the global batch's."""
+        st, opts, cfg, group = (self._require_state(), self.opts, self.cfg,
+                                self.group)
         b = self.shard(batch)
         self.fusion_model.eval()
         self.heads.train()
         feats = self._frozen_stage1(b)
         proj, s2t = self.heads(
-            feats, _generator(self.device, opts.seed, st.step))
+            feats, _generator(self.device, opts.seed, st.step, *self._rank))
         half = proj[MODALITIES[0]].shape[-1] // 2
         l_con = sum(contrastive_loss(proj[a][..., :half],
                                      proj[c][..., :half], cfg.seq_len,
-                                     temperature=opts.temp)
+                                     temperature=opts.temp, group=group)
                     for a, c in PAIRS) / 3.0
-        l_dis = sum(distance_loss(proj[a][..., half:], proj[c][..., half:])
+        l_dis = sum(distance_loss(proj[a][..., half:], proj[c][..., half:],
+                                  group=group)
                     for a, c in PAIRS) / 3.0
-        l_trans = translation_loss(s2t, feats[opts.target_domain])
+        l_trans = translation_loss(s2t, feats[opts.target_domain],
+                                   group=group)
         logits = self.fusion_model(
             b["image"], b["lidar"], b["radar"], b["gps"],
             rebuild_feats=self._as_maps(s2t),
-            generator=self._missing_generator(st.step + 2))
-        l_fus = focal_loss(logits, b["beam"], num_classes=cfg.num_beams)
+            generator=self._missing_generator(st.step + 2, *self._rank))
+        # over a group, the global batch's row count: the contrastive
+        # gather above raised unless every rank holds as many rows
+        denom = (None if group is None else torch.full(
+            (), float(logits.shape[0] * self.mesh.world_size),
+            device=self.device))
+        l_fus = focal_loss(logits, b["beam"], num_classes=cfg.num_beams,
+                           denom=denom)
         total = (opts.alpha_trans * l_trans + opts.alpha_contrast * l_con
                  + opts.alpha_distance * l_dis + opts.alpha_fusion * l_fus)
 
         st.optimizer.zero_grad(set_to_none=True)
         total.backward()
-        for group in st.optimizer.param_groups:
-            for p in group["params"]:
-                # an unused parameter (the live image stem+stage1, whose
-                # features the rebuilt ones replace): a zero gradient, so
-                # that AdamW still decays it, as optax does
-                if p.grad is None:
-                    p.grad = torch.zeros_like(p)
+        params = [p for g in st.optimizer.param_groups for p in g["params"]]
+        for p in params:
+            # an unused parameter (the live image stem+stage1, whose
+            # features the rebuilt ones replace): a zero gradient, so that
+            # AdamW still decays it, as optax does, and every rank's flat
+            # buffer has one layout
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        terms = torch.stack([total, l_trans, l_con, l_dis, l_fus]).detach()
+        if group is not None:
+            # the shares' gradients and terms add up to the global step's
+            _flat_all_reduce([p.grad for p in params] + [terms], group)
         st.optimizer.param_groups[0]["lr"] = float(lr)
         st.optimizer.step()
         st.step += 1
-        out = {"loss": total, "trans": l_trans, "contrast": l_con,
-               "distance": l_dis, "fusion": l_fus}
+        names = ("loss", "trans", "contrast", "distance", "fusion")
         if floats:
-            return dict(zip(out, torch.stack(
-                [v.detach().float() for v in out.values()]).tolist()))
-        return {k: v.detach() for k, v in out.items()}
+            return dict(zip(names, terms.float().tolist()))
+        return dict(zip(names, terms.unbind()))
 
     @torch.no_grad()
     def rebuild_features(self, batch) -> torch.Tensor:

@@ -30,10 +30,11 @@ evenly across them, every replica's forward queued before any result is
 read back, and the logits gathered on the first device.  The host still
 issues each replica's launches in turn, so a host-bound model serves
 slower over a mesh than on one device (PERF.md); the option keeps the JAX
-package's API, and letting the replicas overlap is ROADMAP.md Queue 1
-item 7's remainder.  Buckets then count per
-mesh: a request pads to a bucket times the device count, and so does an
-artifact's default batch.  A
+package's API, and letting the replicas overlap is a speed-up that
+ROADMAP.md Queue 1 item 7's remainder keeps (a ``perf_opt``; the rest of
+item 7, the rebuild trainer's data parallelism included, is ported).
+Buckets then count per mesh: a request pads to a bucket times the device
+count, and so does an artifact's default batch.  A
 :class:`~deepsense6g_tii_tpu_torch.parallel.mesh.Mesh` in its place names
 the devices (two replicas on one card, or two CPU devices in a test).
 

@@ -194,9 +194,10 @@ def make_train_step(model, cfg: GlobalConfig, state: TrainState,
     normalisation serves ``valid`` in a single process.  A hand-written
     reduction and not DDP: the zero gradients of unused parameters keep
     one layout on every rank, the global normalisation under ``valid`` is
-    exact, and ``grad_accum`` needs no ``no_sync`` bookkeeping (DDP's
-    overlap of the reduction with the backward is ROADMAP.md Queue 1 item
-    7's remainder)."""
+    exact, and ``grad_accum`` needs no ``no_sync`` bookkeeping.  The
+    data-parallel rebuild step (``rebuild/trainer.py``) reduces through the
+    same flat buffer.  DDP's overlap of the reduction with the backward is
+    a ``perf_opt`` that ROADMAP.md Queue 1 item 7's remainder keeps."""
     dev = resolve_device(device)
     if state.model is not model:
         raise ValueError("state was not created for this model")
